@@ -1,0 +1,73 @@
+"""Conditional mapping network: label map (+z, +c) -> ws.
+
+Port of `MaskMappingNetworkDisentangle` from `pix2pix3d_tpu/nn/cond_mapping.py`
+(ref `training/triplane_cond.py:301-399`; the JAX `_CondMappingBase` is folded
+in), the variant every shipped seg config uses: the label-map encoder
+produces the first `geometry_layer` W+ latents (geometry); z and the camera
+c drive the remaining broadcast style latents (appearance).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .encoder import Encoder
+from .layers import FullyConnected, normalize_2nd_moment
+
+
+def _one_hot_mask(mask, num_channels):
+    """mask `[N, H, W, 1]` integer labels -> `[N, C, H, W]` one-hot float."""
+    return F.one_hot(mask[..., 0].long(), num_channels).permute(0, 3, 1, 2).float()
+
+
+class MaskMappingNetworkDisentangle(nn.Module):
+    def __init__(self, z_dim, c_dim, in_resolution, in_channels, w_dim, num_ws,
+                 num_layers=8, embed_features=None, layer_features=None,
+                 activation="lrelu", lr_multiplier=0.01, encoder_channel_base=1,
+                 encoder_channel_max=512, encoder_num_fp16_res=0, geometry_layer=7,
+                 **unused):
+        super().__init__()
+        self.z_dim = z_dim
+        self.c_dim = c_dim
+        self.in_channels = in_channels
+        self.num_ws = num_ws
+        self.num_layers = num_layers
+        self.geometry_layer = geometry_layer
+        embed_features = w_dim if embed_features is None else embed_features
+        layer_features = w_dim if layer_features is None else layer_features
+        features = ([z_dim + (embed_features if c_dim else 0)]
+                    + [layer_features] * (num_layers - 1) + [w_dim])
+        # serving runs the trailing `encoder_num_fp16_res` encoder
+        # resolutions in bf16 tensors
+        self.embed_mask = Encoder(
+            img_resolution=in_resolution, img_channels=in_channels,
+            channel_base=encoder_channel_base, channel_max=encoder_channel_max,
+            num_fp16_res=encoder_num_fp16_res,
+            conv_clamp=256 if encoder_num_fp16_res else None,
+            model_kwargs={"num_ws": geometry_layer, "w_dim": w_dim})
+        self.embed = FullyConnected(c_dim, embed_features) if c_dim > 0 else None
+        for i in range(num_layers):
+            self.add_module(f"fc{i}", FullyConnected(
+                features[i], features[i + 1], activation=activation,
+                lr_multiplier=lr_multiplier))
+        self.register_buffer("w_avg", torch.zeros(num_ws, w_dim))
+
+    def forward(self, z=None, c=None, batch=None, truncation_psi=1.0, **unused):
+        x = None
+        if self.z_dim > 0:
+            x = normalize_2nd_moment(z.float())
+        if self.c_dim > 0:
+            ce = normalize_2nd_moment(self.embed(c.float()))
+            x = torch.cat([x, ce], dim=1) if x is not None else ce
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+
+        mask = _one_hot_mask(batch["mask"], self.in_channels)
+        y = self.embed_mask(mask)["ws"].float()                  # [N, G, w_dim]
+        x = x[:, None, :].repeat(1, self.num_ws - self.geometry_layer, 1)
+        x = torch.cat([y, x], dim=1)
+        if truncation_psi != 1:
+            x = self.w_avg + truncation_psi * (x - self.w_avg)
+        return x
