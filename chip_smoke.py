@@ -6,7 +6,9 @@
 Phases, each printing its name and wall time:
 
 1. device   -- CUDA card present; its name and `nvidia-smi` name/power limit.
-2. build    -- nvcc builds `csrc/decode_composite.cu` for sm_90a.
+2. build    -- nvcc builds both kernels for sm_90a from `csrc/`, one nvcc
+               process each, started together: `decode_composite.cu` and
+               `late_separate_decode.cu`.
 3. kernel   -- the decode+composite kernel against its plain PyTorch
                version at the main-path shape (N=1, T=64 in chunks of 8,
                R=128^2) on seeded random inputs: f32 (TF32 off) and bf16,
@@ -26,6 +28,26 @@ Phases, each printing its name and wall time:
 7. main-path kernel -- the kernel on the inputs the main path gave it:
                error against the plain version, times, bound, library
                yardstick.
+8. decoder kernel -- the lateSeparate decode kernel against its plain
+               version on seeded random inputs, f32 and bf16 x rgb_sigmoid x
+               sem_sigmoid, at the importance path's chunk (65,536 rows), at
+               scripts/profile_decoder.py's working set (12,582,912 rows)
+               and at an odd size (600 rows); max and RMS errors, median
+               times.
+9. serve-importance -- the full-width seg2cat generator of the apps
+               (`preset_generator_config("seg2cat")`, no `sampler`, so the
+               two-pass importance renderer runs) at batch 1, nrr 128,
+               det=True, f32 with TF32 off: one warm-up, 3 requests (both
+               kernels' counts must stay 0: the generator decodes with
+               impl="ref"), shapes, finiteness, median ms, peak memory; then
+               one request under `torch.profiler`.
+10. importance kernel -- the same planes and camera through `G.renderer`
+               with `G.decoder(f, d, impl="kernel")` and with impl="ref",
+               f32 with TF32 off: the kernel's count, reset just before,
+               must read 24 (2 passes x 12 chunks of 65,536 points); the
+               two renders agree; then the kernel on one chunk's inputs as
+               the path gave them: error against the plain version, times,
+               bound, library yardstick.
 
 The second-to-last line is the `kernels` JSON, the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase catches its
@@ -62,6 +84,24 @@ SFU_PER_CLOCK_SM = 16
 # measured on the CPU), which the RMS gate fails; reorderings alone stay
 # near 1e-6 RMS.
 TOL = {torch.float32: (1e-4, None), torch.bfloat16: (1e-3, 5e-6)}
+# late_separate_decode against its plain version, (per-element tolerance,
+# RMS tolerance of colors and of sigma, each, or None).  f32: the JAX
+# suite's gate for this kernel (tests/test_decoder_pallas.py).  bf16: the
+# outputs themselves are bf16, so another summation order may flip one bf16
+# rounding (one ulp, <= 7.8e-3 below 2); on the CPU the JAX kernel reads
+# RMS <= 4.9e-5 against the plain version, a version that skips the cast of
+# h or of sigma RMS >= 1.7e-3 (tests/test_torch_late_separate.py).
+DECODE_TOL = {torch.float32: (2e-5, None), torch.bfloat16: (8e-3, 2e-4)}
+# rows of late_separate_decode's cases: the importance renderer's chunk,
+# scripts/profile_decoder.py's working set (batch 8, 128^2 rays, 96
+# samples), and an odd size
+DECODE_ROWS = (65536, 8 * 128 * 128 * 96, 600)
+# the apps' seg2cat neural rendering resolution
+# (pix2pix3d_tpu/apps/common.py APP_PRESETS)
+APP_NRR = 128
+# the importance renderer's gate, kernel decoder against impl="ref" (the
+# JAX suite's renderer parity tolerance, tests/test_parity_render.py)
+RENDER_TOL = 1e-4
 
 _T0 = time.time()
 
@@ -157,11 +197,114 @@ def bound(args, sem_sigmoid, sfu_per_s):
     macs = int((w1t != 0).sum().item()) + int((w2t[:65] != 0).sum().item())
     flops = 2 * T * N * R * macs
     sfu = N * R * (T * (2 * 128 + 2 * (64 if sem_sigmoid else 32)) + (T - 1) * 3)
+    return _largest(n_bytes, flops, PEAK_FLOPS[feats.dtype], sfu, sfu_per_s)
+
+
+def _largest(n_bytes, flops, peak_flops, sfu, sfu_per_s):
     terms = {"bytes": (n_bytes, n_bytes / PEAK_BYTES_S * 1e3),
-             "flops": (flops, flops / PEAK_FLOPS[feats.dtype] * 1e3),
+             "flops": (flops, flops / peak_flops * 1e3),
              "transcendentals": (sfu, sfu / sfu_per_s * 1e3)}
     by = max(terms, key=lambda k: terms[k][1])
     return terms[by][1], ("bytes" if by == "bytes" else "operations"), terms
+
+
+def bound_decode(args, kw, sfu_per_s):
+    """Least time (ms) for late_separate_decode's work on these inputs, the
+    largest of three terms: each input read once (feats as given, weights)
+    and each output written once (colors in the compute type, sigma f32)
+    over HBM bandwidth; the nonzero multiply-adds (W1, and W2's 65 live
+    columns) over the compute type's peak; per row exp + log for each of
+    the 128 softplus units and exp + reciprocal for each clamped color over
+    the special-function units' rate.  Returns (ms, bound_by, terms)."""
+    feats, w1, b1, w2, b2 = args
+    cd = kw["compute_dtype"]
+    m = feats.shape[0]
+    n_bytes = sum(a.numel() * a.element_size() for a in args) \
+        + m * 64 * torch.empty((), dtype=cd).element_size() + m * 4
+    macs = int((w1 != 0).sum().item()) + int((w2[:, :65] != 0).sum().item())
+    n_clamped = 32 * bool(kw["rgb_sigmoid"]) + 32 * bool(kw["sem_sigmoid"])
+    sfu = m * (2 * 128 + 2 * n_clamped)
+    return _largest(n_bytes, 2 * m * macs, PEAK_FLOPS[cd], sfu, sfu_per_s)
+
+
+def decode_inputs(rows, dtype, sem_sigmoid, seed, device):
+    """Seeded random features [rows, 32] in `dtype` (drawn on the card) and
+    the packed weights of a lateSeparate decoder with random init."""
+    from pix2pix3d_tpu_torch.models.triplane import (
+        OSGDecoderSemanticLateSeparate, init_parameters)
+    from pix2pix3d_tpu_torch.ops.decode_composite import fuse_late_separate_params
+    dec = OSGDecoderSemanticLateSeparate(
+        32, {"decoder_output_dim": 32, "decoder_lr_mul": 1.0,
+             "sigmoid": sem_sigmoid})
+    init_parameters(dec, torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn((rows, 32), generator=gen, device=device).to(dtype)
+    return (feats, *(a.to(device) for a in fuse_late_separate_params(dec, 1.0)))
+
+
+def compare_decode(got, want, dtype):
+    """compare() for (colors, sigma) at DECODE_TOL, each output on its own;
+    returns (max abs, largest share of the tolerance, RMS colors, RMS
+    sigma)."""
+    tol, rms_tol = DECODE_TOL[dtype]
+    a_c, _, u_c, r_c = compare((got[0],), (want[0],), tol, rms_tol)
+    a_s, _, u_s, r_s = compare((got[1],), (want[1],), tol, rms_tol)
+    return max(a_c, a_s), max(u_c, u_s), r_c, r_s
+
+
+def decode_library_ms(args, cd, reps):
+    """Yardstick: the decoder's two products as torch.matmul calls
+    (cuBLAS), without activations: [M,32]x[32,128] then [M,128]x[128,128]."""
+    x, w1, _, w2, _ = args
+    x, w1, w2 = x.to(cd), w1.to(cd), w2.to(cd)
+    return cuda_ms(lambda: torch.matmul(torch.matmul(x, w1), w2), reps)
+
+
+def profile_request(request, stages):
+    """One request under torch.profiler: logs the wall and device busy
+    time, the idle share, each stage range's host and device time and the
+    top kernels; returns (wall ms, busy ms, {stage: device ms})."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    events = prof.key_averages()
+    # device entries (kernels, copies) outside the stage ranges' own device
+    # spans; a CPU op's device time repeats its kernels', so it is left out
+    device_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key not in stages]
+    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3
+    if busy_ms == 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"profile: request wall {wall_ms:.3f} ms under the profiler; device "
+        f"busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall_ms:.3f}")
+    ranges = {e.key: e for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU and e.key in stages}
+    if set(ranges) != set(stages):
+        raise AssertionError(f"stage ranges {sorted(ranges)} != {sorted(stages)}")
+    for name in stages:
+        log(f"stage {name:12s}: host {ranges[name].cpu_time_total / 1e3:9.3f} ms, "
+            f"device kernels {ranges[name].device_time_total / 1e3:9.3f} ms")
+    for e in sorted(device_ops, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return wall_ms, busy_ms, {k: ranges[k].device_time_total / 1e3 for k in stages}
+
+
+def check_outputs(outs, res, nrr, semantic_channels):
+    """The five outputs have their shapes and are finite."""
+    expect = {"image": (1, res, res, 3), "image_raw": (1, nrr, nrr, 3),
+              "image_depth": (1, nrr, nrr, 1),
+              "semantic": (1, res, res, semantic_channels),
+              "semantic_raw": (1, nrr, nrr, semantic_channels)}
+    for key, shape in expect.items():
+        if tuple(outs[key].shape) != shape:
+            raise AssertionError(f"{key} {tuple(outs[key].shape)} != {shape}")
+        if not torch.isfinite(outs[key]).all():
+            raise AssertionError(f"{key} has non-finite values")
+    return expect
 
 
 def library_ms(args, reps):
@@ -185,7 +328,9 @@ def main():
     from pix2pix3d_tpu_torch import config
     from pix2pix3d_tpu_torch.models import build_generator
     from pix2pix3d_tpu_torch.models.triplane import STAGES
+    from pix2pix3d_tpu_torch.ops import cuda_build
     from pix2pix3d_tpu_torch.ops import decode_composite as dc
+    from pix2pix3d_tpu_torch.ops import late_separate_decode as lsd
     from pix2pix3d_tpu_torch.ops import precision
     from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
                                                    fov_to_intrinsics,
@@ -211,8 +356,9 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    so = dc.build(log=lambda out: print(out.strip(), flush=True))
-    log(f"built {os.path.relpath(so, ROOT)}")
+    for so in cuda_build.build(dc.NAME, lsd.NAME,
+                               log=lambda name, out: print(out.strip(), flush=True)):
+        log(f"built {os.path.relpath(so, ROOT)}")
     phase_done("build", t0)
 
     # ---- 3. kernel vs plain on seeded random inputs
@@ -282,15 +428,7 @@ def main():
     if launches != 3:
         raise AssertionError(f"decode_composite launched {launches} times in 3 "
                              "requests, expected 3")
-    expect = {"image": (1, res, res, 3), "image_raw": (1, nrr, nrr, 3),
-              "image_depth": (1, nrr, nrr, 1),
-              "semantic": (1, res, res, G.semantic_channels),
-              "semantic_raw": (1, nrr, nrr, G.semantic_channels)}
-    for key, shape in expect.items():
-        if tuple(outs[key].shape) != shape:
-            raise AssertionError(f"{key} {tuple(outs[key].shape)} != {shape}")
-        if not torch.isfinite(outs[key]).all():
-            raise AssertionError(f"{key} has non-finite values")
+    expect = check_outputs(outs, res, nrr, G.semantic_channels)
     request_ms = statistics.median(times)
     log(f"serve: 3 requests, kernel launches {launches}; per-request ms "
         f"{[round(t, 3) for t in times]} median {request_ms:.3f}; peak memory "
@@ -305,39 +443,14 @@ def main():
         captured.append((a, kw))
         return kernel(*a, **kw)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     dc.fused_decode_composite = recording
     try:
-        with torch.profiler.profile(activities=acts) as prof:
-            t1 = time.perf_counter()
-            request()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
+        profile_request(request, STAGES)
     finally:
         dc.fused_decode_composite = kernel
     if len(captured) != 1:
         raise AssertionError(f"the request called the kernel wrapper "
                              f"{len(captured)} times, expected 1")
-    events = prof.key_averages()
-    # device entries (kernels, copies) outside the stage ranges' own device
-    # spans; a CPU op's device time repeats its kernels', so it is left out
-    device_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.key not in STAGES]
-    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3
-    if busy_ms == 0:
-        raise AssertionError("the profiler recorded no device time")
-    log(f"profile: request wall {wall_ms:.3f} ms under the profiler; device "
-        f"busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall_ms:.3f}")
-    ranges = {e.key: e for e in events
-              if e.device_type == torch.autograd.DeviceType.CPU and e.key in STAGES}
-    if set(ranges) != set(STAGES):
-        raise AssertionError(f"stage ranges {sorted(ranges)} != {sorted(STAGES)}")
-    for name in STAGES:
-        log(f"stage {name:12s}: host {ranges[name].cpu_time_total / 1e3:9.3f} ms, "
-            f"device kernels {ranges[name].device_time_total / 1e3:9.3f} ms")
-    for e in sorted(device_ops, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
     phase_done("profile", t0)
 
     # ---- 6. unfused decode/composite vs the kernel, f32 render, TF32 off
@@ -390,14 +503,160 @@ def main():
         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     phase_done("main-path kernel", t0)
-
-    print(json.dumps({"kernels": [{
+    report = [{
         "name": "decode_composite", "route": "cuda",
         "source": "pix2pix3d_tpu_torch/csrc/decode_composite.cu",
         "replaces": "pix2pix3d_tpu/ops/render_pallas.py:231",
         "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}]}), flush=True)
+        "library_ms": lib_ms}]
+    del G, outs, out_f32, captured, args, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 8. late_separate_decode vs plain on seeded random inputs
+    t0 = time.time()
+    dkernel = lsd.late_separate_decode
+    with torch.no_grad(), precision.policy(False):
+        for rows in DECODE_ROWS:
+            reps = (3, 2) if rows > 10**6 else (10, 5)
+            for dtype in (torch.float32, torch.bfloat16):
+                for rgb_sigmoid in (True, False):
+                    for sem_sigmoid in (False, True):
+                        args = decode_inputs(rows, dtype, sem_sigmoid, rows + 7, device)
+                        kw = dict(rgb_sigmoid=rgb_sigmoid, sem_sigmoid=sem_sigmoid,
+                                  compute_dtype=dtype)
+                        got = dkernel(*args, **kw)
+                        torch.cuda.synchronize()
+                        want = lsd.late_separate_decode_plain(*args, **kw)
+                        abs_e, used, rms_c, rms_s = compare_decode(got, want, dtype)
+                        del got, want
+                        k_ms = cuda_ms(lambda: dkernel(*args, **kw), reps[0])
+                        p_ms = cuda_ms(lambda: lsd.late_separate_decode_plain(
+                            *args, **kw), reps[1])
+                        b_ms, b_by, terms = bound_decode(args, kw, sfu_per_s)
+                        log(f"decoder kernel vs plain M={rows} {str(dtype)[6:]:8s} "
+                            f"rgb_sigmoid={rgb_sigmoid!s:5s} sem_sigmoid="
+                            f"{sem_sigmoid!s:5s}: max abs {abs_e:.3e} ({used:.3f} "
+                            f"of tol {DECODE_TOL[dtype][0]}), RMS colors {rms_c:.3e} "
+                            f"sigma {rms_s:.3e} (tol {DECODE_TOL[dtype][1]}); "
+                            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                            f"{b_ms:.4f} ms ({max(terms, key=lambda k: terms[k][1])})")
+                        del args
+            torch.cuda.empty_cache()
+    phase_done("decoder kernel", t0)
+
+    # ---- 9. the apps' seg2cat generator: importance renderer, full width
+    t0 = time.time()
+    cfg = config.preset_generator_config("seg2cat")
+    if "sampler" in cfg["rendering_kwargs"]:
+        raise AssertionError("the apps' preset names a sampler")
+    G = build_generator(device=device, seed=0, **cfg)
+    res = cfg["img_resolution"]
+    log(f"built seg2cat generator, importance renderer "
+        f"({sum(p.numel() for p in G.parameters()) / 1e6:.1f} M params) in "
+        f"{time.time() - t0:.1f} s")
+
+    def request_importance():
+        with torch.no_grad(), precision.policy(False):
+            return G(z, pose, batch, neural_rendering_resolution=APP_NRR,
+                     noise_mode="const", det=True)
+
+    request_importance()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = dkernel.launches = 0
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs = request_importance()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    peak_imp = torch.cuda.max_memory_allocated()
+    if kernel.launches or dkernel.launches:
+        raise AssertionError(f"the impl='ref' requests launched decode_composite "
+                             f"{kernel.launches} and late_separate_decode "
+                             f"{dkernel.launches} times, expected 0")
+    check_outputs(outs, res, APP_NRR, G.semantic_channels)
+    log(f"serve-importance: 3 requests; shapes " + ", ".join(
+        f"{k} {tuple(outs[k].shape)}" for k in expect) + "; all finite; "
+        f"per-request ms {[round(t, 3) for t in times]} median "
+        f"{statistics.median(times):.3f}; peak memory {peak_imp / 2**20:.1f} MiB")
+    profile_request(request_importance, STAGES)
+    phase_done("serve-importance", t0)
+
+    # ---- 10. the importance renderer through the decoder kernel
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.render.ray_sampler import sample_rays
+    planes = outs["planes"]
+    ray_o, ray_d = sample_rays(pose[:, :16].reshape(-1, 4, 4),
+                               pose[:, 16:].reshape(-1, 3, 3), APP_NRR)
+    rk = G.rendering_kwargs
+    chunk = rk.get("point_chunk", 65536)
+    expected = sum(math.ceil(APP_NRR ** 2 * rk[k] / chunk)
+                   for k in ("depth_resolution", "depth_resolution_importance"))
+    captured = []
+
+    def recording(*a, **kw):
+        if not captured:
+            captured.append((a, kw))
+        return dkernel(*a, **kw)
+
+    def render(impl):
+        return G.renderer(planes, lambda f, d: G.decoder(f, d, impl=impl),
+                          ray_o, ray_d, rk, det=True)
+
+    with torch.no_grad(), precision.policy(False):
+        lsd.late_separate_decode = recording
+        try:
+            dkernel.launches = 0
+            got = render("kernel")
+            torch.cuda.synchronize()
+            d_launches = dkernel.launches
+        finally:
+            lsd.late_separate_decode = dkernel
+        want = render("ref")
+    if d_launches != expected:
+        raise AssertionError(f"late_separate_decode launched {d_launches} times "
+                             f"in one importance render, expected {expected}")
+    for name, g_, w_ in zip(("features", "depth", "weight sum"), got, want):
+        abs_e, rel_e, used, _ = compare((g_,), (w_,), RENDER_TOL)
+        log(f"importance render, kernel vs ref decoder {name:10s} "
+            f"{tuple(g_.shape)}: max abs {abs_e:.3e} rel {rel_e:.3e} "
+            f"({used:.3f} of tol {RENDER_TOL})")
+    log(f"importance render: late_separate_decode launches {d_launches}")
+
+    a, kw = captured[0]
+    args = tuple(a)
+    dtype = kw["compute_dtype"]
+    with torch.no_grad(), precision.policy(False):
+        got = dkernel(*args, **kw)
+        torch.cuda.synchronize()
+        want = lsd.late_separate_decode_plain(*args, **kw)
+        d_abs, used, rms_c, rms_s = compare_decode(got, want, dtype)
+        dk_ms = cuda_ms(lambda: dkernel(*args, **kw), 20)
+        dp_ms = cuda_ms(lambda: lsd.late_separate_decode_plain(*args, **kw), 10)
+        dlib_ms = decode_library_ms(args, dtype, 20)
+    db_ms, db_by, terms = bound_decode(args, kw, sfu_per_s)
+    log(f"importance-path decoder inputs: feats {tuple(args[0].shape)} "
+        f"{args[0].dtype}, {kw}; bound terms: " + ", ".join(
+            f"{k} {n:.4g} -> {ms:.4f} ms" for k, (n, ms) in terms.items()))
+    log(f"importance-path decoder kernel: max abs {d_abs:.3e} ({used:.3f} of tol "
+        f"{DECODE_TOL[dtype][0]}), RMS colors {rms_c:.3e} sigma {rms_s:.3e}; "
+        f"kernel {dk_ms:.4f} ms, plain {dp_ms:.4f} ms, torch.matmul "
+        f"{dlib_ms:.4f} ms, bound {db_ms:.4f} ms ({db_by})")
+    phase_done("importance kernel", t0)
+
+    report.append({
+        "name": "late_separate_decode", "route": "cuda",
+        "source": "pix2pix3d_tpu_torch/csrc/late_separate_decode.cu",
+        "replaces": "pix2pix3d_tpu/ops/decoder_pallas.py:113",
+        "launches": d_launches, "max_abs_err": d_abs, "ms": dk_ms,
+        "plain_ms": dp_ms, "bound_ms": db_ms, "bound_by": db_by,
+        "library_ms": dlib_ms})
+    print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -44,6 +44,9 @@
 // f32 FMAs reproduce bf16-in / f32-accumulate products; h (and, without
 // carry_f32, the colors) are rounded to bf16 where the TPU kernel casts.
 //
+// The per-sample MLP (decode_sample) and the weights' shared-memory layout
+// are in late_separate_mlp.cuh, which late_separate_decode.cu shares.
+//
 // The plain PyTorch version is decode_composite_plain() in
 // pix2pix3d_tpu_torch/ops/decode_composite.py; the CPU tests hold it
 // against the JAX kernel, chip_smoke.py holds this kernel against it.
@@ -58,41 +61,17 @@
 
 #include <cstddef>
 
+#include "late_separate_mlp.cuh"
+
 namespace {
 
-constexpr int C_IN = 32;      // feature channels
-constexpr int HID = 128;      // hidden units (both MLPs side by side)
-constexpr int N_OUT = 65;     // rows of o the composite reads
-constexpr int OUT_PAD = 68;   // W2 row stride in shared memory (float4)
-constexpr int N_COL = 64;     // colors (rgb features + semantic features)
+using namespace p2p3d;
+
 constexpr int RAYS = 64;      // rays per block, one per thread
 
 constexpr size_t SMEM_FLOATS =
     HID * C_IN + HID * OUT_PAD + HID + OUT_PAD + 2 * N_COL * RAYS;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename E>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// jax.nn.softplus: log(1 + exp(v)) = max(v, 0) + log1p(exp(-|v|))
-__device__ __forceinline__ float softplus(float v) {
-  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-}
-
-__device__ __forceinline__ float sigmoid_clamp(float v) {
-  return (1.f / (1.f + expf(-v))) * 1.002f - 0.001f;
-}
 
 template <typename E>
 __global__ void __launch_bounds__(RAYS)
@@ -138,33 +117,7 @@ decode_composite_kernel(const E* __restrict__ feats,
     for (int c = 0; c < C_IN; ++c) x[c] = to_f(xp[(size_t)c * R]);
 
     float o[OUT_PAD];
-#pragma unroll
-    for (int k = 0; k < OUT_PAD; ++k) o[k] = 0.f;
-
-#pragma unroll 2
-    for (int j = 0; j < HID; ++j) {
-      const float4* w1row = reinterpret_cast<const float4*>(w1s + j * C_IN);
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int c4 = 0; c4 < C_IN / 4; ++c4) {
-        const float4 w = w1row[c4];
-        a[0] = fmaf(w.x, x[4 * c4 + 0], a[0]);
-        a[1] = fmaf(w.y, x[4 * c4 + 1], a[1]);
-        a[2] = fmaf(w.z, x[4 * c4 + 2], a[2]);
-        a[3] = fmaf(w.w, x[4 * c4 + 3], a[3]);
-      }
-      const float h =
-          round_to<E>(softplus(((a[0] + a[1]) + (a[2] + a[3])) + b1s[j]));
-      const float4* w2row = reinterpret_cast<const float4*>(w2s + j * OUT_PAD);
-#pragma unroll
-      for (int k4 = 0; k4 < OUT_PAD / 4; ++k4) {
-        const float4 w = w2row[k4];
-        o[4 * k4 + 0] = fmaf(w.x, h, o[4 * k4 + 0]);
-        o[4 * k4 + 1] = fmaf(w.y, h, o[4 * k4 + 1]);
-        o[4 * k4 + 2] = fmaf(w.z, h, o[4 * k4 + 2]);
-        o[4 * k4 + 3] = fmaf(w.w, h, o[4 * k4 + 3]);
-      }
-    }
+    decode_sample<E>(x, w1s, b1s, w2s, o);
 
     const float s = o[N_COL] + b2s[N_COL];
     const float d = t_vals[(size_t)n * n_slabs + t] * dn;

@@ -2,10 +2,18 @@
 
 `TriPlaneSemanticEntangleGenerator` (ref `triplane_cond.py:976-1079`): one
 conditional StyleGAN2 backbone emits 3x32-channel planes, the lateSeparate
-two-MLP decoder yields rgb features + (sigma, semantic logits), the frustum
+two-MLP decoder yields rgb features + (sigma, semantic logits), a volume
 renderer composites a 64-channel feature image, and its rgb and semantic
-halves are super-resolved separately.  Only the frustum sampler is ported
-(the gather/importance renderer is a later slice).
+halves are super-resolved separately.  Both samplers are ported: the
+two-pass importance renderer (`render/renderer.py`, the default, as in the
+JAX package) and the frustum-slab serving renderer
+(`rendering_kwargs['sampler'] = 'frustum'`).
+
+The decoder's `impl="kernel"` (the JAX package's `impl="pallas"`) runs the
+hand-written lateSeparate kernel (`ops/late_separate_decode.py`); like the
+JAX package, the importance branch calls the decoder with its default
+`impl="ref"`, and the kernel is reached through that argument, e.g.
+`G.renderer(planes, lambda f, d: G.decoder(f, d, impl="kernel"), ...)`.
 
 Inputs and outputs keep the JAX package's layouts: mask `[N, H, W, 1]`,
 images `[N, H, W, C]`, planes `[N, 3, H, W, C]`.
@@ -26,9 +34,13 @@ from ..nn.layers import FullyConnected
 from ..nn.superresolution import build_superresolution
 from ..nn.synthesis import SynthesisNetwork
 from ..ops import precision
+from ..ops import late_separate_decode as lsd
 from ..ops.bias_act import softplus
-from ..ops.decode_composite import fuse_late_separate_params_t
+from ..ops.decode_composite import (fuse_late_separate_params,
+                                    fuse_late_separate_params_t)
 from ..render.frustum import frustum_render
+from ..render.ray_sampler import sample_rays
+from ..render.renderer import ImportanceRenderer
 
 MAPPING_REGISTRY = {"MaskMappingNetwork_disentangle": MaskMappingNetworkDisentangle}
 # profiler range names of the forward's stages, in order
@@ -64,10 +76,22 @@ class OSGDecoderSemanticLateSeparate(nn.Module):
         self.net_semantic = _MLP2(n_features, 64, out, self.lr_mul)
         self.semantic_sigmoid = options["sigmoid"]
 
-    def forward(self, sampled_features, ray_directions):
+    def forward(self, sampled_features, ray_directions, impl="ref"):
+        """`impl="ref"`: the two MLPs layer by layer; `impl="kernel"`: both
+        MLPs and the epilogue in the lateSeparate kernel, at the features'
+        dtype (JAX `triplane.py:149-162`)."""
         x = sampled_features.mean(dim=1)                      # [N, M, C]
         n, m, c = x.shape
         x = x.reshape(n * m, c)
+        if impl == "kernel":
+            w1, b1, w2, b2 = fuse_late_separate_params(self, self.lr_mul)
+            colors, sigma = lsd.late_separate_decode(
+                x, w1, b1, w2, b2, rgb_sigmoid=True,
+                sem_sigmoid=self.semantic_sigmoid, compute_dtype=x.dtype)
+            return {"rgb": colors.reshape(n, m, -1),
+                    "sigma": sigma.reshape(n, m, 1)}
+        if impl != "ref":
+            raise ValueError(f"impl {impl!r} is not 'ref' or 'kernel'")
         rgb = self.net(x).reshape(n, m, -1)
         semantic = self.net_semantic(x).reshape(n, m, -1)
         sigma = semantic[..., 0:1]
@@ -142,6 +166,7 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
                  "decoder_output_dim": 32, "sigmoid": semantic_channels == 1})
         self.neural_rendering_resolution = 64
         self.rendering_kwargs = rendering_kwargs
+        self.renderer = ImportanceRenderer()
 
     def mapping(self, z, c, batch, truncation_psi=1.0, truncation_cutoff=None):
         if self.rendering_kwargs["c_gen_conditioning_zero"]:
@@ -150,13 +175,13 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
             z, c * self.rendering_kwargs.get("c_scale", 0), batch=batch,
             truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
 
-    def _render_planes(self, planes, c, nrr):
+    def _render_planes(self, planes, c, nrr, generator=None, det=False):
         rk = self.rendering_kwargs
-        if rk.get("sampler") != "frustum":
-            raise NotImplementedError(
-                "only rendering_kwargs['sampler'] = 'frustum' is ported; the "
-                "gather/importance renderer is still to port")
         cam2world, intrinsics = _parse_pose(c)
+        if rk.get("sampler") != "frustum":
+            ray_origins, ray_directions = sample_rays(cam2world, intrinsics, nrr)
+            return self.renderer(planes, self.decoder, ray_origins,
+                                 ray_directions, rk, generator=generator, det=det)
         fused = None
         if rk.get("decoder_impl") == "kernel":
             fused = (*fuse_late_separate_params_t(self.decoder, self.decoder.lr_mul),
@@ -170,13 +195,20 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
             fused_decoder=fused)
 
     def synthesis(self, ws, c, neural_rendering_resolution=None,
-                  noise_mode="const", force_fp32=False):
+                  noise_mode="const", force_fp32=False, det=False,
+                  generator=None, planes=None):
+        """Planes (from ws, unless cached `planes` `[N, 3, H, W, 32]` are
+        given), render, super-resolution.  The importance renderer draws
+        its jitter from the `torch.Generator` `generator`, or none with
+        `det=True`; the frustum renderer takes neither."""
         nrr = neural_rendering_resolution or self.neural_rendering_resolution
-        with record_function(STAGES[1]):
-            planes = _reshape_planes(self.backbone.synthesis(
-                ws, noise_mode=noise_mode, force_fp32=force_fp32))
+        if planes is None:
+            with record_function(STAGES[1]):
+                planes = _reshape_planes(self.backbone.synthesis(
+                    ws, noise_mode=noise_mode, force_fp32=force_fp32))
         with record_function(STAGES[2]):
-            feats, depths, _ = self._render_planes(planes, c, nrr)
+            feats, depths, _ = self._render_planes(planes, c, nrr,
+                                                   generator=generator, det=det)
         n = feats.shape[0]
         feature_image = feats.reshape(n, nrr, nrr, -1).permute(0, 3, 1, 2)
         depth_image = depths.reshape(n, nrr, nrr, 1)
@@ -203,6 +235,26 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
         return {"image": _nhwc(sr_image), "image_raw": _nhwc(rgb_image),
                 "image_depth": depth_image, "semantic": _nhwc(sr_semantic),
                 "semantic_raw": _nhwc(semantic_image), "planes": planes}
+
+    def sample(self, coordinates, directions, z, c, batch, truncation_psi=1.0,
+               truncation_cutoff=None, **synthesis_kwargs):
+        """Field evaluation from (z, mask) inputs (ref `triplane_cond.py
+        :1063-1068`): mapping, then `sample_mixed`."""
+        ws = self.mapping(z, batch["pose"], batch, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff)
+        return self.sample_mixed(coordinates, directions, ws, **synthesis_kwargs)
+
+    def sample_mixed(self, coordinates, directions, ws, noise_mode="const",
+                     force_fp32=False):
+        """The neural field at 3D points `[N, M, 3]` (ref `triplane_cond.py
+        :1070-1074`; mesh extraction uses it)."""
+        planes = _reshape_planes(self.backbone.synthesis(
+            ws, noise_mode=noise_mode, force_fp32=force_fp32))
+        return self.run_model_planes(planes, coordinates, directions)
+
+    def run_model_planes(self, planes, coordinates, directions):
+        return self.renderer.run_model(planes, self.decoder, coordinates,
+                                       directions, self.rendering_kwargs)
 
     def forward(self, z, c, batch, truncation_psi=1.0, truncation_cutoff=None,
                 neural_rendering_resolution=None, **synthesis_kwargs):

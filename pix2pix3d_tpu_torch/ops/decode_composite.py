@@ -1,10 +1,10 @@
-"""Fused decode + composite of the frustum renderer: wrapper, CUDA build and
-plain PyTorch version.
+"""Fused decode + composite of the frustum renderer: wrapper and plain
+PyTorch version.
 
 Port of `pix2pix3d_tpu/ops/render_pallas.py::fused_decode_composite`.  The
-kernel is `csrc/decode_composite.cu` (CUDA C++ for sm_90a), built with
-`nvcc` into a shared library with a plain C interface on first use and
-loaded with `ctypes`.  Layout, as the TPU kernel takes it:
+kernel is `csrc/decode_composite.cu` (CUDA C++ for sm_90a), built by
+`ops/cuda_build.py` into a shared library with a plain C interface on first
+use and loaded with `ctypes`.  Layout, as the TPU kernel takes it:
 
     feats   [CH, N, TC, 32, R]  slab features, channels first, f32 or bf16
     t_vals  [N, CH*TC] f32      z-depths;  dnorm [N, R] f32 direction norms
@@ -19,22 +19,14 @@ launch adds one to `fused_decode_composite.launches`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .bias_act import softplus
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "decode_composite.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NAME = "decode_composite"   # csrc/decode_composite.cu
 
 
 @torch.no_grad()
@@ -130,33 +122,6 @@ def decode_composite_plain(feats, t_vals, dnorm, w1t, b1, w2t, b2,
     return acc_c, acc_d, acc_w
 
 
-def build(log=None):
-    """Compile `csrc/decode_composite.cu` (once per source hash) and return
-    the path of the shared library.  `log`, if given, receives nvcc's
-    output (register and shared-memory use from ptxas)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libdecode_composite_{tag}.so"
-    if so.exists():
-        return so
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = shutil.which("nvcc") or (
-        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
-    if nvcc is None or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernel is built on a "
-                           "machine with the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if log is not None:
-        log(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
-
-
 class _FusedDecodeComposite:
     """Callable wrapper; `launches` counts kernel launches."""
 
@@ -166,12 +131,9 @@ class _FusedDecodeComposite:
 
     def _load(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.p2p3d_decode_composite
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = cuda_build.load(
+                NAME, "p2p3d_decode_composite",
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         return self._fn
 
     def __call__(self, feats, t_vals, dnorm, w1t, b1, w2t, b2,

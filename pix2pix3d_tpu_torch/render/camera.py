@@ -12,10 +12,7 @@ import math
 import torch
 
 from .. import resolve_device
-
-
-def normalize_vecs(vectors):
-    return vectors / torch.linalg.norm(vectors, dim=-1, keepdim=True)
+from .math_utils import normalize_vecs
 
 
 def create_cam2world_matrix(forward_vector, origin):
