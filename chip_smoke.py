@@ -8,16 +8,23 @@ Phases, each printing its name and wall time:
 1. device   -- CUDA card present; its name and `nvidia-smi` name/power limit.
 2. build    -- nvcc builds both kernels for sm_90a from `csrc/`, one nvcc
                process each, started together: `decode_composite.cu` and
-               `late_separate_decode.cu`.
+               `late_separate_decode.cu`; ptxas's registers and spills for
+               each kernel function (each dtype instantiation).
 3. kernel   -- the decode+composite kernel against its plain PyTorch
                version at the main-path shape (N=1, T=64 in chunks of 8,
                R=128^2) on seeded random inputs: f32 (TF32 off) and bf16,
-               carry_f32 x sem_sigmoid; max and RMS errors, median times.
+               carry_f32 x sem_sigmoid; max and RMS errors, times.
+               Every weight set fed to a kernel in this script is checked
+               to be block-diagonal as `fuse_late_separate_params(_t)`
+               packs it (the kernels read only the two live blocks).
 4. serve    -- full-width seg2cat serving forward (random weights from
                `torch.Generator().manual_seed(0)`): one warm-up, then 3
                requests at batch 1 with the kernel's launch count reset to
                0 just before and read just after (it must read 3); shapes,
-               finiteness, per-request median ms, peak memory.
+               finiteness, per-request median ms, peak memory; then two
+               requests with noise_mode="random" from equally seeded card
+               generators must agree exactly, and differ from const noise
+               once the noise strengths are set.
 5. profile  -- one more request under `torch.profiler`: device busy time,
                idle share, each stage's time (the generator's
                `record_function` ranges) and the top kernels; the kernel's
@@ -33,7 +40,8 @@ Phases, each printing its name and wall time:
                sem_sigmoid, at the importance path's chunk (65,536 rows), at
                scripts/profile_decoder.py's working set (12,582,912 rows)
                and at an odd size (600 rows); max and RMS errors, median
-               times.
+               times; then, at 600 rows, a contiguous view one element into
+               its storage (off the words the kernel reads rows in).
 9. serve-importance -- the full-width seg2cat generator of the apps
                (`preset_generator_config("seg2cat")`, no `sampler`, so the
                two-pass importance renderer runs) at batch 1, nrr 128,
@@ -49,6 +57,12 @@ Phases, each printing its name and wall time:
                the path gave them: error against the plain version, times,
                bound, library yardstick.
 
+Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
+call between CUDA events (`cuda_ms`), the host's launch path included;
+`device_ms`, `plain_device_ms` and `library_device_ms` time the same calls
+repeated in one CUDA graph (`device_ms`), so that the host's launch overhead
+and the wrappers' casts are left out.
+
 The second-to-last line is the `kernels` JSON, the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase catches its
 own failure, and nothing runs on the CPU in place of the card.
@@ -57,6 +71,7 @@ own failure, and nothing runs on the CPU in place of the card.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +146,41 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, reps):
+    """Device time (ms) of one `fn()` without the host's launch overhead:
+    `reps` calls captured in one CUDA graph, the graph replayed 3 times
+    between CUDA events, the median over the replays divided by `reps`.
+    `fn` must take its inputs as the kernel does (dtypes converted
+    beforehand), so that only its own kernels run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    # cuBLAS keeps a workspace for every stream that ran a product (here the
+    # side and capture streams); release them, so that later phases' peak
+    # memory is what it would be without this timing
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return statistics.median(times)
+
+
 def compare(got, want, tol, rms_tol=None):
     """(max_abs, max_rel, used, rms) over a tuple of tensors: max_rel is
     max_abs over the largest |want|, `used` the largest share of the
@@ -160,6 +210,45 @@ def compare(got, want, tol, rms_tol=None):
     return max_abs, max_abs / max(scale, 1e-30), used, rms
 
 
+def ptxas_report(out, cufilt):
+    """[(kernel function, registers, spill store bytes, spill load bytes)]
+    from nvcc's `-Xptxas -v` output, the names demangled by `cufilt` (the
+    toolkit's `cu++filt`) without their parameters."""
+    rows, name, spills = [], None, (0, 0)
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    if rows:
+        names = subprocess.run([cufilt, "-p"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+        rows = [(n, *r[1:]) for n, r in zip(names, rows)]
+    return rows
+
+
+def check_block_diagonal(w2, transposed):
+    """The packed W2 (`[hidden, out]`, or W2ᵀ if `transposed`) is zero
+    outside its two live blocks, [0:64, 0:32] and [64:128, 32:65], the only
+    entries the kernels read."""
+    w = w2.t() if transposed else w2
+    live = torch.zeros((128, 128), dtype=torch.bool, device=w.device)
+    live[:64, :32] = True
+    live[64:, 32:65] = True
+    if tuple(w.shape) != (128, 128) or (w[~live] != 0).any():
+        raise AssertionError("W2 is not the block-diagonal packing of "
+                             "fuse_late_separate_params")
+
+
 def kernel_inputs(dc, dtype, sem_sigmoid, gen, device):
     """Seeded random inputs at the main-path shape; the weights are a
     lateSeparate decoder's, packed as the renderer packs them."""
@@ -171,12 +260,27 @@ def kernel_inputs(dc, dtype, sem_sigmoid, gen, device):
     init_parameters(dec, gen)
     w1t, b1, w2t, b2 = (a.to(device) for a in
                         dc.fuse_late_separate_params_t(dec, 1.0))
+    check_block_diagonal(w2t, transposed=True)
     R = NRR * NRR
     feats = torch.randn((T_STEPS // CHUNK, 1, CHUNK, 32, R), generator=gen)
     t_vals = 2.0 + torch.sort(torch.rand((1, T_STEPS), generator=gen), dim=1)[0]
     dnorm = 1.0 + 0.1 * torch.rand((1, R), generator=gen)
     return (feats.to(device, dtype), t_vals.to(device), dnorm.to(device),
             w1t, b1, w2t, b2)
+
+
+def kernel_typed(args):
+    """decode_composite's inputs with the weights already in the feats
+    type, as the wrapper casts them, so that timing sees only the kernel."""
+    feats, t_vals, dnorm, w1t, b1, w2t, b2 = args
+    return feats, t_vals, dnorm, w1t.to(feats.dtype), b1, w2t.to(feats.dtype), b2
+
+
+def decode_typed(args, dtype):
+    """late_separate_decode's inputs in the compute type, as the wrapper
+    casts them."""
+    feats, w1, b1, w2, b2 = args
+    return feats.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2
 
 
 def bound(args, sem_sigmoid, sfu_per_s):
@@ -206,6 +310,18 @@ def _largest(n_bytes, flops, peak_flops, sfu, sfu_per_s):
              "transcendentals": (sfu, sfu / sfu_per_s * 1e3)}
     by = max(terms, key=lambda k: terms[k][1])
     return terms[by][1], ("bytes" if by == "bytes" else "operations"), terms
+
+
+def achieved(terms, ms, sm_clock_hz, n_sm):
+    """What the kernel reached in `ms` on each bound term: bytes/s and
+    FLOP/s as shares of their peaks, special-function results per clock per
+    SM (the table's rate is SFU_PER_CLOCK_SM)."""
+    (nb, b_ms), (nf, f_ms), (nt, _) = (terms[k] for k in
+                                       ("bytes", "flops", "transcendentals"))
+    per_clk_sm = nt / (ms * 1e-3) / sm_clock_hz / n_sm
+    return (f"achieved: {b_ms / ms:.3f} of the memory rate, {f_ms / ms:.3f} of "
+            f"the product rate, {per_clk_sm:.2f} special-function results per "
+            f"clock per SM (table {SFU_PER_CLOCK_SM})")
 
 
 def bound_decode(args, kw, sfu_per_s):
@@ -239,7 +355,9 @@ def decode_inputs(rows, dtype, sem_sigmoid, seed, device):
     init_parameters(dec, torch.Generator().manual_seed(seed))
     gen = torch.Generator(device=device).manual_seed(seed)
     feats = torch.randn((rows, 32), generator=gen, device=device).to(dtype)
-    return (feats, *(a.to(device) for a in fuse_late_separate_params(dec, 1.0)))
+    w1, b1, w2, b2 = (a.to(device) for a in fuse_late_separate_params(dec, 1.0))
+    check_block_diagonal(w2, transposed=False)
+    return feats, w1, b1, w2, b2
 
 
 def compare_decode(got, want, dtype):
@@ -254,10 +372,14 @@ def compare_decode(got, want, dtype):
 
 def decode_library_ms(args, cd, reps):
     """Yardstick: the decoder's two products as torch.matmul calls
-    (cuBLAS), without activations: [M,32]x[32,128] then [M,128]x[128,128]."""
+    (cuBLAS), without activations: [M,32]x[32,128] then [M,128]x[128,128];
+    (call ms, device ms)."""
     x, w1, _, w2, _ = args
     x, w1, w2 = x.to(cd), w1.to(cd), w2.to(cd)
-    return cuda_ms(lambda: torch.matmul(torch.matmul(x, w1), w2), reps)
+
+    def fn():
+        return torch.matmul(torch.matmul(x, w1), w2)
+    return cuda_ms(fn, reps), device_ms(fn, reps)
 
 
 def profile_request(request, stages):
@@ -309,13 +431,17 @@ def check_outputs(outs, res, nrr, semantic_channels):
 
 def library_ms(args, reps):
     """Yardstick: the decoder's two products for all T*R samples as
-    torch.matmul calls (cuBLAS), without activations or the composite."""
+    torch.matmul calls (cuBLAS), without activations or the composite;
+    (call ms, device ms)."""
     feats, t_vals, dnorm, w1t, b1, w2t, b2 = args
     CH, N, TC, C, R = feats.shape
     x = feats.permute(3, 0, 1, 2, 4).reshape(C, -1)
     w1 = w1t.to(feats.dtype)
     w2 = w2t.to(feats.dtype)
-    return cuda_ms(lambda: torch.matmul(w2, torch.matmul(w1, x)), reps)
+
+    def fn():
+        return torch.matmul(w2, torch.matmul(w1, x))
+    return cuda_ms(fn, reps), device_ms(fn, reps)
 
 
 def main():
@@ -356,8 +482,14 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    for so in cuda_build.build(dc.NAME, lsd.NAME,
-                               log=lambda name, out: print(out.strip(), flush=True)):
+    cufilt = os.path.join(os.path.dirname(cuda_build._nvcc()), "cu++filt")
+
+    def build_log(name, out):
+        for fn, regs, st, ld in ptxas_report(out, cufilt):
+            log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+
+    for so in cuda_build.build(dc.NAME, lsd.NAME, log=build_log):
         log(f"built {os.path.relpath(so, ROOT)}")
     phase_done("build", t0)
 
@@ -376,11 +508,14 @@ def main():
                     want = dc.decode_composite_plain(*args, **kw)
                     abs_e, rel_e, used, rms = compare(got, want, tol, rms_tol)
                     k_ms = cuda_ms(lambda: dc.fused_decode_composite(*args, **kw), 5)
+                    targs = kernel_typed(args)
+                    kd_ms = device_ms(lambda: dc.fused_decode_composite(*targs, **kw), 5)
                     p_ms = cuda_ms(lambda: dc.decode_composite_plain(*args, **kw), 3)
                     log(f"kernel vs plain {str(dtype)[6:]:8s} carry_f32={carry_f32!s:5s} "
                         f"sem_sigmoid={sem_sigmoid!s:5s}: max abs {abs_e:.3e} rel {rel_e:.3e} "
                         f"({used:.3f} of tol {tol}), RMS {rms:.3e} (tol {rms_tol}); "
-                        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+                        f"kernel device {kd_ms:.4f} ms (call {k_ms:.4f}), plain call "
+                        f"{p_ms:.3f} ms")
     phase_done("kernel", t0)
 
     # ---- 4. serving forward, full width
@@ -433,6 +568,34 @@ def main():
     log(f"serve: 3 requests, kernel launches {launches}; per-request ms "
         f"{[round(t, 3) for t in times]} median {request_ms:.3f}; peak memory "
         f"{peak / 2**20:.1f} MiB")
+
+    # noise_mode="random" (the generator's default) on the card: the noise
+    # strengths are 0 at init, so set them, then equally seeded generators
+    # must give equal outputs and const noise another
+    strengths = [p for name, p in G.named_parameters()
+                 if name.endswith("noise_strength")]
+    for p in strengths:
+        p.fill_(0.1)
+
+    def request_random(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad(), precision.policy(True):
+            return G(z, pose, batch, neural_rendering_resolution=nrr,
+                     generator=gen)
+
+    out_a, out_b = request_random(7), request_random(7)
+    const_img = request()["image"]
+    for p in strengths:
+        p.zero_()
+    if not all(torch.equal(out_a[k], out_b[k]) for k in expect):
+        raise AssertionError("noise_mode='random': equally seeded requests differ")
+    if torch.equal(out_a["image"], const_img):
+        raise AssertionError("noise_mode='random' gave the const-noise image")
+    check_outputs(out_a, res, nrr, G.semantic_channels)
+    log(f"serve: noise_mode='random' from seeded card generators: equal seeds "
+        f"agree, max abs difference from const noise "
+        f"{(out_a['image'] - const_img).abs().max().item():.3e}")
+    del out_a, out_b, const_img
     phase_done("serve", t0)
 
     # ---- 5. one request under the profiler; keeps the kernel's inputs
@@ -485,32 +648,40 @@ def main():
     t0 = time.time()
     a, kw = captured[0]
     args = tuple(a)
+    check_block_diagonal(args[5], transposed=True)
     tol, rms_tol = TOL[args[0].dtype]
     with precision.policy(False):
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
         want = dc.decode_composite_plain(*args, **kw)
         max_abs, max_rel, used, rms = compare(got, want, tol, rms_tol)
-        k_ms = cuda_ms(lambda: kernel(*args, **kw), 10)
-        p_ms = cuda_ms(lambda: dc.decode_composite_plain(*args, **kw), 5)
-        lib_ms = library_ms(args, 10)
+        kc_ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+        targs = kernel_typed(args)
+        k_ms = device_ms(lambda: kernel(*targs, **kw), 10)
+        pc_ms = cuda_ms(lambda: dc.decode_composite_plain(*args, **kw), 5)
+        p_ms = device_ms(lambda: dc.decode_composite_plain(*args, **kw), 5)
+        libc_ms, lib_ms = library_ms(args, 10)
     b_ms, b_by, terms = bound(args, kw["sem_sigmoid"], sfu_per_s)
     log(f"main-path kernel inputs: feats {tuple(args[0].shape)} {args[0].dtype}, "
         f"{kw}; bound terms: " + ", ".join(
             f"{k} {n:.4g} -> {ms:.4f} ms" for k, (n, ms) in terms.items()))
     log(f"main-path kernel: max abs {max_abs:.3e} rel {max_rel:.3e} ({used:.3f} "
         f"of tol {tol}), RMS {rms:.3e} (tol {rms_tol}); "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"device ms: kernel {k_ms:.4f}, plain {p_ms:.4f}, torch.matmul {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} ({b_by}); call ms (CUDA events around one call, host "
+        f"launch included): kernel {kc_ms:.4f}, plain {pc_ms:.4f}, torch.matmul "
+        f"{libc_ms:.4f}")
+    log(f"main-path kernel {achieved(terms, k_ms, sm_clock_mhz * 1e6, n_sm)}")
     phase_done("main-path kernel", t0)
     report = [{
         "name": "decode_composite", "route": "cuda",
         "source": "pix2pix3d_tpu_torch/csrc/decode_composite.cu",
         "replaces": "pix2pix3d_tpu/ops/render_pallas.py:231",
-        "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}]
-    del G, outs, out_f32, captured, args, got, want
+        "launches": launches, "max_abs_err": max_abs, "ms": kc_ms,
+        "plain_ms": pc_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": libc_ms, "device_ms": k_ms, "plain_device_ms": p_ms,
+        "library_device_ms": lib_ms}]
+    del G, outs, out_f32, captured, args, targs, got, want
     torch.cuda.empty_cache()
 
     # ---- 8. late_separate_decode vs plain on seeded random inputs
@@ -531,6 +702,9 @@ def main():
                         abs_e, used, rms_c, rms_s = compare_decode(got, want, dtype)
                         del got, want
                         k_ms = cuda_ms(lambda: dkernel(*args, **kw), reps[0])
+                        targs = decode_typed(args, dtype)
+                        kd_ms = device_ms(lambda: dkernel(*targs, **kw), reps[0])
+                        del targs
                         p_ms = cuda_ms(lambda: lsd.late_separate_decode_plain(
                             *args, **kw), reps[1])
                         b_ms, b_by, terms = bound_decode(args, kw, sfu_per_s)
@@ -539,10 +713,28 @@ def main():
                             f"{sem_sigmoid!s:5s}: max abs {abs_e:.3e} ({used:.3f} "
                             f"of tol {DECODE_TOL[dtype][0]}), RMS colors {rms_c:.3e} "
                             f"sigma {rms_s:.3e} (tol {DECODE_TOL[dtype][1]}); "
-                            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                            f"{b_ms:.4f} ms ({max(terms, key=lambda k: terms[k][1])})")
+                            f"kernel device {kd_ms:.4f} ms (call {k_ms:.4f}), plain "
+                            f"call {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                            f"({max(terms, key=lambda k: terms[k][1])}); "
+                            + achieved(terms, kd_ms, sm_clock_mhz * 1e6, n_sm))
                         del args
             torch.cuda.empty_cache()
+        # a contiguous view one element into its storage, off the words the
+        # kernel reads rows in: the wrapper must still give the plain result
+        for dtype in (torch.float32, torch.bfloat16):
+            args = decode_inputs(DECODE_ROWS[-1], dtype, False, 11, device)
+            view = torch.empty(args[0].numel() + 1, dtype=dtype, device=device)[1:]
+            view = view.view(args[0].shape)
+            view.copy_(args[0])
+            got = dkernel(view, *args[1:], compute_dtype=dtype)
+            torch.cuda.synchronize()
+            want = lsd.late_separate_decode_plain(*args, compute_dtype=dtype)
+            abs_e, used, rms_c, rms_s = compare_decode(got, want, dtype)
+            log(f"decoder kernel on a view at byte offset {view.data_ptr() % 16} "
+                f"mod 16, M={DECODE_ROWS[-1]} {str(dtype)[6:]}: max abs {abs_e:.3e} "
+                f"({used:.3f} of tol {DECODE_TOL[dtype][0]}), RMS colors "
+                f"{rms_c:.3e} sigma {rms_s:.3e}")
+            del args, view, got, want
     phase_done("decoder kernel", t0)
 
     # ---- 9. the apps' seg2cat generator: importance renderer, full width
@@ -630,32 +822,40 @@ def main():
 
     a, kw = captured[0]
     args = tuple(a)
+    check_block_diagonal(args[3], transposed=False)
     dtype = kw["compute_dtype"]
     with torch.no_grad(), precision.policy(False):
         got = dkernel(*args, **kw)
         torch.cuda.synchronize()
         want = lsd.late_separate_decode_plain(*args, **kw)
         d_abs, used, rms_c, rms_s = compare_decode(got, want, dtype)
-        dk_ms = cuda_ms(lambda: dkernel(*args, **kw), 20)
-        dp_ms = cuda_ms(lambda: lsd.late_separate_decode_plain(*args, **kw), 10)
-        dlib_ms = decode_library_ms(args, dtype, 20)
+        dkc_ms = cuda_ms(lambda: dkernel(*args, **kw), 20)
+        targs = decode_typed(args, dtype)
+        dk_ms = device_ms(lambda: dkernel(*targs, **kw), 20)
+        dpc_ms = cuda_ms(lambda: lsd.late_separate_decode_plain(*args, **kw), 10)
+        dp_ms = device_ms(lambda: lsd.late_separate_decode_plain(*args, **kw), 10)
+        dlibc_ms, dlib_ms = decode_library_ms(args, dtype, 20)
     db_ms, db_by, terms = bound_decode(args, kw, sfu_per_s)
     log(f"importance-path decoder inputs: feats {tuple(args[0].shape)} "
         f"{args[0].dtype}, {kw}; bound terms: " + ", ".join(
             f"{k} {n:.4g} -> {ms:.4f} ms" for k, (n, ms) in terms.items()))
     log(f"importance-path decoder kernel: max abs {d_abs:.3e} ({used:.3f} of tol "
         f"{DECODE_TOL[dtype][0]}), RMS colors {rms_c:.3e} sigma {rms_s:.3e}; "
-        f"kernel {dk_ms:.4f} ms, plain {dp_ms:.4f} ms, torch.matmul "
-        f"{dlib_ms:.4f} ms, bound {db_ms:.4f} ms ({db_by})")
+        f"device ms: kernel {dk_ms:.4f}, plain {dp_ms:.4f}, torch.matmul "
+        f"{dlib_ms:.4f}, bound {db_ms:.4f} ({db_by}); call ms: kernel {dkc_ms:.4f}, "
+        f"plain {dpc_ms:.4f}, torch.matmul {dlibc_ms:.4f}")
+    log(f"importance-path decoder kernel "
+        f"{achieved(terms, dk_ms, sm_clock_mhz * 1e6, n_sm)}")
     phase_done("importance kernel", t0)
 
     report.append({
         "name": "late_separate_decode", "route": "cuda",
         "source": "pix2pix3d_tpu_torch/csrc/late_separate_decode.cu",
         "replaces": "pix2pix3d_tpu/ops/decoder_pallas.py:113",
-        "launches": d_launches, "max_abs_err": d_abs, "ms": dk_ms,
-        "plain_ms": dp_ms, "bound_ms": db_ms, "bound_by": db_by,
-        "library_ms": dlib_ms})
+        "launches": d_launches, "max_abs_err": d_abs, "ms": dkc_ms,
+        "plain_ms": dpc_ms, "bound_ms": db_ms, "bound_by": db_by,
+        "library_ms": dlibc_ms, "device_ms": dk_ms, "plain_device_ms": dp_ms,
+        "library_device_ms": dlib_ms})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

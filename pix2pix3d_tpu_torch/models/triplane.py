@@ -45,6 +45,11 @@ from ..render.renderer import ImportanceRenderer
 MAPPING_REGISTRY = {"MaskMappingNetwork_disentangle": MaskMappingNetworkDisentangle}
 # profiler range names of the forward's stages, in order
 STAGES = ("mapping", "backbone", "render", "sr_rgb", "sr_semantic")
+# rendering_kwargs['decoder_impl'] of the frustum sampler: None (and the JAX
+# package's "ref", its alias) decodes and composites in PyTorch ops; "kernel"
+# (and the JAX package's "pallas", its alias) runs the fused decode+composite
+# kernel
+DECODER_IMPLS = (None, "ref", "kernel", "pallas")
 
 
 def _sigmoid_clamp(x):
@@ -182,30 +187,44 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
             ray_origins, ray_directions = sample_rays(cam2world, intrinsics, nrr)
             return self.renderer(planes, self.decoder, ray_origins,
                                  ray_directions, rk, generator=generator, det=det)
+        if rk.get("frustum_tiles") is not None:
+            raise NotImplementedError(
+                "rendering_kwargs['frustum_tiles'] (per-output-tile "
+                "sub-windows) is not ported yet: ROADMAP.md Queue 1, "
+                "'Frustum leftovers'")
+        impl = rk.get("decoder_impl")
+        if impl not in DECODER_IMPLS:
+            raise ValueError(f"rendering_kwargs['decoder_impl'] {impl!r} is not "
+                             f"one of {DECODER_IMPLS}")
         fused = None
-        if rk.get("decoder_impl") == "kernel":
+        if impl in ("kernel", "pallas"):
             fused = (*fuse_late_separate_params_t(self.decoder, self.decoder.lr_mul),
                      self.decoder.semantic_sigmoid)
         return frustum_render(
             planes, self.decoder, cam2world, intrinsics, rk, nrr,
             depth_steps=rk.get("frustum_depth_steps"),
             chunk=rk.get("frustum_chunk"),
+            window=rk.get("frustum_window"),
             compute_dtype=(torch.bfloat16 if rk.get("frustum_bf16", True)
                            else torch.float32),
             fused_decoder=fused)
 
     def synthesis(self, ws, c, neural_rendering_resolution=None,
-                  noise_mode="const", force_fp32=False, det=False,
+                  noise_mode="random", force_fp32=False, det=False,
                   generator=None, planes=None):
         """Planes (from ws, unless cached `planes` `[N, 3, H, W, 32]` are
-        given), render, super-resolution.  The importance renderer draws
-        its jitter from the `torch.Generator` `generator`, or none with
-        `det=True`; the frustum renderer takes neither."""
+        given), render, super-resolution.  The `torch.Generator`
+        `generator` feeds every random draw, in this order: the backbone's
+        noise (noise_mode 'random', the default, as in the JAX package),
+        the importance renderer's jitter (none with `det=True`; the
+        frustum renderer takes none) and the SR stacks' noise (their
+        `superresolution_noise_mode`).  A draw without a generator raises."""
         nrr = neural_rendering_resolution or self.neural_rendering_resolution
         if planes is None:
             with record_function(STAGES[1]):
                 planes = _reshape_planes(self.backbone.synthesis(
-                    ws, noise_mode=noise_mode, force_fp32=force_fp32))
+                    ws, noise_mode=noise_mode, force_fp32=force_fp32,
+                    generator=generator))
         with record_function(STAGES[2]):
             feats, depths, _ = self._render_planes(planes, c, nrr,
                                                    generator=generator, det=det)
@@ -221,16 +240,19 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
         sr_noise_mode = self.rendering_kwargs["superresolution_noise_mode"]
 
         # sr_sem_precision: the semantic SR stack at f32 activations, its
-        # matmuls at the graded level (ops/precision.py).
+        # matmuls at the graded level (ops/precision.py); the legacy flag
+        # sr_sem_f32 means "highest", as in the JAX package.
         sem_prec = self.rendering_kwargs.get("sr_sem_precision")
+        if sem_prec is None and self.rendering_kwargs.get("sr_sem_f32"):
+            sem_prec = "highest"
         with record_function(STAGES[3]):
             sr_image = self.superresolution(
                 rgb_image, rgb_feature_image, ws, noise_mode=sr_noise_mode,
-                force_fp32=force_fp32)
+                force_fp32=force_fp32, generator=generator)
         with record_function(STAGES[4]), precision.scope(sem_prec):
             sr_semantic = self.superresolution_semantic(
                 semantic_image, semantic_feature_image, ws,
-                noise_mode=sr_noise_mode,
+                noise_mode=sr_noise_mode, generator=generator,
                 force_fp32=force_fp32 or sem_prec is not None)
         return {"image": _nhwc(sr_image), "image_raw": _nhwc(rgb_image),
                 "image_depth": depth_image, "semantic": _nhwc(sr_semantic),
@@ -245,11 +267,12 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
         return self.sample_mixed(coordinates, directions, ws, **synthesis_kwargs)
 
     def sample_mixed(self, coordinates, directions, ws, noise_mode="const",
-                     force_fp32=False):
+                     generator=None, force_fp32=False):
         """The neural field at 3D points `[N, M, 3]` (ref `triplane_cond.py
         :1070-1074`; mesh extraction uses it)."""
         planes = _reshape_planes(self.backbone.synthesis(
-            ws, noise_mode=noise_mode, force_fp32=force_fp32))
+            ws, noise_mode=noise_mode, force_fp32=force_fp32,
+            generator=generator))
         return self.run_model_planes(planes, coordinates, directions)
 
     def run_model_planes(self, planes, coordinates, directions):
@@ -259,7 +282,8 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
     def forward(self, z, c, batch, truncation_psi=1.0, truncation_cutoff=None,
                 neural_rendering_resolution=None, **synthesis_kwargs):
         """z [N, z_dim], c [N, 25] camera, batch {'mask' [N, H, W, 1],
-        'pose' [N, 25]}; `noise_mode` 'const' | 'none'."""
+        'pose' [N, 25]}; `noise_mode` 'random' (the default; needs
+        `generator`) | 'const' | 'none'."""
         with record_function(STAGES[0]):
             ws = self.mapping(z, batch["pose"], batch, truncation_psi=truncation_psi,
                               truncation_cutoff=truncation_cutoff)

@@ -33,12 +33,15 @@ class _SRBase(nn.Module):
         self.input_resolution = input_resolution
         self.sr_antialias = sr_antialias
 
-    def forward(self, rgb, x, ws, force_fp32=False, noise_mode="none"):
+    def forward(self, rgb, x, ws, force_fp32=False, noise_mode="random",
+                generator=None):
         ws = ws[:, -1:, :].repeat(1, 3, 1)
         x = resize_bilinear(x, self.input_resolution, antialias=self.sr_antialias)
         rgb = resize_bilinear(rgb, self.input_resolution, antialias=self.sr_antialias)
-        x, rgb = self.block0(x, rgb, ws, force_fp32=force_fp32, noise_mode=noise_mode)
-        x, rgb = self.block1(x, rgb, ws, force_fp32=force_fp32, noise_mode=noise_mode)
+        x, rgb = self.block0(x, rgb, ws, force_fp32=force_fp32,
+                             noise_mode=noise_mode, generator=generator)
+        x, rgb = self.block1(x, rgb, ws, force_fp32=force_fp32,
+                             noise_mode=noise_mode, generator=generator)
         return rgb
 
 

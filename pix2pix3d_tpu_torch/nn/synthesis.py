@@ -3,8 +3,9 @@
 
 Blocks flagged `use_fp16` run in bfloat16 tensors, as in the JAX package;
 `force_fp32=True` runs everything in f32 for parity checks.  Noise is
-'const' (the `noise_const` buffers) or 'none', the serving modes; the
-training mode 'random' is not ported yet.  Blocks use the 'skip'
+'random' (the default, as in the JAX package: a fresh `[N, 1, res, res]`
+normal draw from an explicit `torch.Generator`, times `noise_strength`),
+'const' (the `noise_const` buffers) or 'none'.  Blocks use the 'skip'
 architecture, the one pix2pix3D builds.
 """
 
@@ -19,6 +20,13 @@ from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.upfirdn2d import setup_filter, upsample2d
 from .layers import FullyConnected, modulated_conv2d, randn
 from .mapping import MappingNetwork
+
+
+def draw_noise(shape, generator, device):
+    """Standard normal draws from `generator` (on its own device), on
+    `device`: the per-layer noise of noise_mode 'random'."""
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
 
 
 def _dtype(use_fp16, force_fp32):
@@ -57,13 +65,19 @@ class SynthesisLayer(nn.Module):
                 self.noise_const.copy_(randn(self.noise_const.shape, generator))
                 self.noise_strength.zero_()
 
-    def forward(self, x, w, noise_mode="const", gain=1.0):
-        if noise_mode not in ("const", "none"):
-            raise ValueError(f"noise_mode {noise_mode!r}: only 'const' and "
-                             "'none' are ported")
+    def forward(self, x, w, noise_mode="random", generator=None, gain=1.0):
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"noise_mode {noise_mode!r} is not 'random', "
+                             "'const' or 'none'")
         styles = self.affine(w)
         noise = None
-        if self.use_noise and noise_mode == "const":
+        if self.use_noise and noise_mode == "random":
+            if generator is None:
+                raise ValueError("noise_mode='random' needs a torch.Generator")
+            res = self.noise_const.shape[0]
+            noise = draw_noise((x.shape[0], 1, res, res), generator,
+                               x.device) * self.noise_strength
+        elif self.use_noise and noise_mode == "const":
             noise = (self.noise_const * self.noise_strength)[None, None]
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding,
@@ -135,7 +149,8 @@ class SynthesisBlock(nn.Module):
             with torch.no_grad():
                 self.const.copy_(randn(self.const.shape, generator))
 
-    def forward(self, x, img, ws, force_fp32=False, noise_mode="const"):
+    def forward(self, x, img, ws, force_fp32=False, noise_mode="random",
+                generator=None):
         if ws.shape[1] != self.num_conv + self.num_torgb:
             raise ValueError(f"block takes {self.num_conv + self.num_torgb} ws, "
                              f"got {ws.shape[1]}")
@@ -144,8 +159,10 @@ class SynthesisBlock(nn.Module):
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].repeat(ws.shape[0], 1, 1, 1)
         else:
-            x = self.conv0(x.to(dtype), next(w_iter), noise_mode=noise_mode)
-        x = self.conv1(x, next(w_iter), noise_mode=noise_mode)
+            x = self.conv0(x.to(dtype), next(w_iter), noise_mode=noise_mode,
+                           generator=generator)
+        x = self.conv1(x, next(w_iter), noise_mode=noise_mode,
+                       generator=generator)
 
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter)
@@ -177,7 +194,7 @@ class SynthesisNetwork(nn.Module):
             self.add_module(f"b{res}", block)
         self.num_ws += 1  # the last block's ToRGB
 
-    def forward(self, ws, force_fp32=False, noise_mode="const"):
+    def forward(self, ws, force_fp32=False, noise_mode="random", generator=None):
         if ws.shape[1] != self.num_ws or ws.shape[2] != self.w_dim:
             raise ValueError(f"ws {tuple(ws.shape)} != [N, {self.num_ws}, "
                              f"{self.w_dim}]")
@@ -189,7 +206,7 @@ class SynthesisNetwork(nn.Module):
             cur = ws[:, w_idx:w_idx + block.num_conv + block.num_torgb]
             w_idx += block.num_conv
             x, img = block(x, img, cur, force_fp32=force_fp32,
-                           noise_mode=noise_mode)
+                           noise_mode=noise_mode, generator=generator)
         return img
 
 

@@ -11,6 +11,10 @@ use and loaded with `ctypes`.  Layout, as the TPU kernel takes it:
     w1t [128, 32], b1 [128, 1], w2t [128, 128], b2 [128, 1]
     -> acc_rgb [N, 64, R], acc_d [N, R], acc_w [N, R]   (f32, unnormalized)
 
+The weights are those of `fuse_late_separate_params_t`: the kernel and the
+plain version read only W2ᵀ's two live blocks, W2ᵀ[0:32, 0:64] (rgb) and
+W2ᵀ[32:65, 64:128] (semantic features and sigma).
+
 `fused_decode_composite` launches the kernel for CUDA tensors and runs
 `decode_composite_plain` for CPU tensors; there is no other fallback.  Each
 launch adds one to `fused_decode_composite.launches`.
@@ -37,7 +41,9 @@ def fuse_late_separate_params(decoder, lr_mul):
 
     W2 is block-diagonal: rows 0:64 of the hidden layer feed the rgb
     features (cols 0:32), rows 64:128 the semantic features (cols 32:64)
-    and sigma (col 64).  Gains follow `FullyConnected`."""
+    and sigma (col 64); every other entry is 0, and the kernels and their
+    plain versions read only those two blocks.  Gains follow
+    `FullyConnected`."""
     for net in (decoder.net, decoder.net_semantic):
         if tuple(net.fc0.weight.shape) != (64, 32) or \
                 tuple(net.fc1.weight.shape) != (33, 64):
@@ -81,21 +87,26 @@ def decode_composite_plain(feats, t_vals, dnorm, w1t, b1, w2t, b2,
     Products are taken in f32 on inputs rounded to the feats type, which is
     what bf16-in / f32-accumulate hardware computes; h (and, without
     `carry_f32`, the colors) are rounded to the feats type where the TPU
-    kernel casts them."""
+    kernel casts them.  Only W2ᵀ's two live blocks are read,
+    W2ᵀ[0:32, 0:64] and W2ᵀ[32:65, 64:128] (the packing of
+    `fuse_late_separate_params_t`); the rest of W2ᵀ is never looked at."""
     CH, N, TC, C, R = feats.shape
     dt = feats.dtype
     w1 = w1t.to(dt).float()
-    w2 = w2t.to(dt).float()
+    w2_rgb = w2t[:32, :64].to(dt).float()
+    w2_sem = w2t[32:65, 64:].to(dt).float()
     b1 = b1.float().reshape(-1, 1)
     b2 = b2.float().reshape(-1, 1)
-    rows = torch.arange(128, device=feats.device)[:, None]
+    rows = torch.arange(65, device=feats.device)[:, None]
     use = (rows < 32) | ((rows < 64) & sem_sigmoid)
 
     prev_c = prev_s = prev_d = trans = acc_c = acc_d = acc_w = None
     for t in range(CH * TC):
         x = feats[t // TC, :, t % TC].float()                 # [N, 32, R]
         h = softplus(torch.matmul(w1, x) + b1)                # [N, 128, R]
-        o = torch.matmul(w2, h.to(dt).float()) + b2
+        h = h.to(dt).float()
+        o = torch.cat([torch.matmul(w2_rgb, h[:, :64]),
+                       torch.matmul(w2_sem, h[:, 64:])], dim=1) + b2[:65]
         o_act = torch.where(use, torch.sigmoid(o) * (1 + 2 * 0.001) - 0.001, o)
         c = o_act[:, :64]
         if not carry_f32:

@@ -4,7 +4,8 @@ plain PyTorch version.
 Port of `pix2pix3d_tpu/ops/decoder_pallas.py::late_separate_decode`.  The
 kernel is `csrc/late_separate_decode.cu` (CUDA C++ for sm_90a), built by
 `ops/cuda_build.py` and loaded with `ctypes`.  It takes the packed weights
-of `ops/decode_composite.py::fuse_late_separate_params`:
+of `ops/decode_composite.py::fuse_late_separate_params`, and reads only
+W2's two live blocks, W2[0:64, 0:32] and W2[64:128, 32:65]:
 
     feats [M, 32], w1 [32, 128], b1 [1, 128], w2 [128, 128], b2 [1, 128]
     -> colors [M, 64] in the compute type, sigma [M, 1] f32
@@ -37,12 +38,15 @@ def late_separate_decode_plain(feats, w1, b1, w2, b2, rgb_sigmoid=True,
     """Plain PyTorch version of the kernel: same math, same roundings.
 
     Products are taken in f32 on inputs rounded to the compute type, which
-    is what bf16-in / f32-accumulate hardware computes.  Only W2's 65 live
-    columns are multiplied (the rest of the packed W2 is zero and unread)."""
+    is what bf16-in / f32-accumulate hardware computes.  Only W2's two live
+    blocks are read, W2[0:64, 0:32] and W2[64:128, 32:65] (the packing of
+    `fuse_late_separate_params`); the rest of W2 is never looked at."""
     cd = compute_dtype
     x = feats.to(cd).float()
     h = softplus(torch.matmul(x, w1.to(cd).float()) + b1.float().reshape(1, -1))
-    o = torch.matmul(h.to(cd).float(), w2[:, :65].to(cd).float()) \
+    h = h.to(cd).float()
+    o = torch.cat([torch.matmul(h[:, :64], w2[:64, :32].to(cd).float()),
+                   torch.matmul(h[:, 64:], w2[64:, 32:65].to(cd).float())], dim=1) \
         + b2.float().reshape(1, -1)[:, :65]
     col = torch.arange(65, device=feats.device)
     use = ((col < 32) & bool(rgb_sigmoid)) | \
@@ -101,6 +105,10 @@ class _LateSeparateDecode:
 
         cd = compute_dtype
         x = feats.to(cd)
+        if x.data_ptr() % 16:
+            # the kernel reads rows in 16-byte (f32) or 4-byte (bf16) words;
+            # a view that starts between them is copied to fresh memory
+            x = x.clone()
         w1 = w1.to(cd).contiguous()
         w2 = w2.to(cd).contiguous()
         b1 = b1.float().contiguous()

@@ -15,7 +15,8 @@ Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
 Layouts follow the JAX package: planes `[N, 3, S, S, C]` feature-last,
 textures `[S, S, C]`.  The window specs and the NaN-poison coverage guard
 stay as the JAX package has them.  Per-output-tile sub-windows
-(`rendering_kwargs['frustum_tiles']`, opt-in there) are not ported.
+(`rendering_kwargs['frustum_tiles']`, opt-in there) are not ported; the
+generator refuses the key.
 """
 
 from __future__ import annotations

@@ -407,9 +407,10 @@ def test_synthesis_with_cached_planes_equals_synthesis(generators):
     z, mask, pose = _request(np.pi / 2 + 0.1, np.pi / 2, 4)
     with torch.no_grad():
         ws = Gt.mapping(t(z), t(pose), {"mask": t(mask), "pose": t(pose)})
-        full = Gt.synthesis(ws, t(pose), neural_rendering_resolution=32, det=True)
+        full = Gt.synthesis(ws, t(pose), neural_rendering_resolution=32, det=True,
+                            noise_mode="const")
         cached = Gt.synthesis(ws, t(pose), neural_rendering_resolution=32, det=True,
-                              planes=full["planes"])
+                              noise_mode="const", planes=full["planes"])
     for key in OUTPUTS:
         assert torch.equal(full[key], cached[key]), key
 

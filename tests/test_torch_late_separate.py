@@ -260,3 +260,26 @@ def test_cuda_kernel_matches_plain_on_card():
         else:
             used, rms_c, rms_s = _bf16_errors(got, want)
             assert used <= 1.0 and max(rms_c, rms_s) <= BF16_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_takes_a_misaligned_view(dtype):
+    """A contiguous view that starts one element into its storage, off the
+    words the kernel reads rows in, gives the plain version's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    args = [a.cuda() for a in _small_args()]
+    feats = args[0].to(dtype)
+    view = torch.empty(feats.numel() + 1, dtype=dtype, device="cuda")[1:]
+    view = view.view(feats.shape)
+    view.copy_(feats)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = lsd.late_separate_decode(view, *args[1:], compute_dtype=dtype)
+    want = lsd.late_separate_decode_plain(feats, *args[1:], compute_dtype=dtype)
+    if dtype == torch.float32:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        used, rms_c, rms_s = _bf16_errors(got, want)
+        assert used <= 1.0 and max(rms_c, rms_s) <= BF16_RMS
