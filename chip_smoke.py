@@ -19,8 +19,9 @@ Phases, each printing its name and wall time:
                packs it (the kernels read only the two live blocks).
 4. serve    -- full-width seg2cat serving forward (random weights from
                `torch.Generator().manual_seed(0)`): one warm-up, then 3
-               requests at batch 1 with the kernel's launch count reset to
-               0 just before and read just after (it must read 3); shapes,
+               requests at batch 1, both kernels' launch counts reset to 0
+               just before each and read just after it (decode_composite
+               must add 1 a request, late_separate_decode 0); shapes,
                finiteness, per-request median ms, peak memory; then two
                requests with noise_mode="random" from equally seeded card
                generators must agree exactly, and differ from const noise
@@ -51,17 +52,54 @@ Phases, each printing its name and wall time:
                one request under `torch.profiler`.
 10. importance kernel -- the same planes and camera through `G.renderer`
                with `G.decoder(f, d, impl="kernel")` and with impl="ref",
-               f32 with TF32 off: the kernel's count, reset just before,
-               must read 24 (2 passes x 12 chunks of 65,536 points); the
+               f32 with TF32 off: the counts, reset just before, must read
+               24 (2 passes x 12 chunks of 65,536 points) for the decoder
+               kernel and 0 for decode_composite; the
                two renders agree; then the kernel on one chunk's inputs as
                the path gave them: error against the plain version, times,
                bound, library yardstick.
+
+11. checkpoint -- the apps' seg2cat generator of phase 9 through
+               `bridge.params_to_jax`, written with the port's
+               `save_checkpoint` into a temporary directory twice (f32, and a
+               bf16 `G_ema` export as scripts/export_ema.py writes it), each
+               with its config sidecar, each read back through
+               `build_app_generator("seg2cat", checkpoint=...)`: every
+               parameter equals the source bit for bit (f32) or the source
+               rounded to bf16 (export); sizes, write and read times.
+12. apps     -- on the generator read from the f32 file (importance
+               sampler, 512²): `generate_sample` (one warm-up, 3 requests,
+               median ms); `render_video` over 8 frames, the backbone run
+               once (a forward hook counts it); `extract_semantic_mesh` at
+               MESH_RESOLUTION (the sigma grid, marching cubes on it and the
+               whole call timed, vertex and face counts; the threshold is
+               the grid's 90th percentile, random weights having no surface
+               at the app's 50); an `EditSession` (yaw 0, yaw 0.3 on the same ws, a
+               brush edit, yaw 0 again).  Neither kernel may launch.
+13. apps-serving -- the same generator with the port's
+               `config.SERVING_RENDERING` keys on its `rendering_kwargs`
+               (frustum sampler, fused decode+composite, 64 slabs in
+               chunks of 8, f32 carry): `generate_sample` launches
+               decode_composite once per request (3 requests, both counts
+               reset just before and read after each); finite outputs.
+14. released configs -- one `generate_sample` each of seg2face (512², 19
+               classes) and edge2car (128², edge mapping, white_back, nrr
+               64) at full width, random weights: shapes and finiteness.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
 `device_ms`, `plain_device_ms` and `library_device_ms` time the same calls
 repeated in one CUDA graph (`device_ms`), so that the host's launch overhead
 and the wrappers' casts are left out.
+
+Each kernel in the `kernels` line also gives `launches_by_path`: its
+launch count on each path, every path run through `PathCounts.run`, which
+sets both kernels' counts to 0 just before each step of the path and reads
+them just after (`launches` is the main path's: serve for
+decode_composite, the importance kernel render for late_separate_decode).
+
+Every number these phases print is measured on the card named in phase
+device (name and power limit as `nvidia-smi` gives them).
 
 The second-to-last line is the `kernels` JSON, the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase catches its
@@ -75,8 +113,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -117,6 +157,11 @@ APP_NRR = 128
 # the importance renderer's gate, kernel decoder against impl="ref" (the
 # JAX suite's renderer parity tolerance, tests/test_parity_render.py)
 RENDER_TOL = 1e-4
+# phase apps: the mesh grid's resolution (the app's default) and frames
+MESH_RESOLUTION = 256
+VIDEO_FRAMES = 8
+NO_LAUNCHES = {"decode_composite": 0, "late_separate_decode": 0}
+ONE_DECODE_COMPOSITE = {"decode_composite": 1, "late_separate_decode": 0}
 
 _T0 = time.time()
 
@@ -444,6 +489,272 @@ def library_ms(args, reps):
     return cuda_ms(fn, reps), device_ms(fn, reps)
 
 
+def timed_requests(request, n):
+    """`n` calls of `request()` between CUDA events: (ms list, last output)."""
+    times, out = [], None
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = request()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times, out
+
+
+class PathCounts:
+    """Each kernel's launches on each path.  `run(path, fn)` sets every
+    wrapper's count to 0 just before `fn()` and adds the counts read just
+    after to the path's; `by_path` holds only counts read so."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels  # {name: wrapper with a `launches` count}
+        self.by_path = {name: {} for name in kernels}
+
+    def run(self, path, fn):
+        for k in self.kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for name, k in self.kernels.items():
+            self.by_path[name][path] = self.by_path[name].get(path, 0) + k.launches
+        return out
+
+    def requests(self, path, request, n, per_request):
+        """`n` timed requests, each one step of `path`; after the i-th the
+        path's counts must be i times `per_request` ({name: launches} for
+        every kernel).  Returns (ms list, last output)."""
+        times, out = [], None
+        for i in range(1, n + 1):
+            t, out = self.run(path, lambda: timed_requests(request, 1))
+            times += t
+            got = {name: c[path] for name, c in self.by_path.items()}
+            want = {name: i * per_request[name] for name in self.kernels}
+            if got != want:
+                raise AssertionError(f"{path} request {i}: launches {got}, "
+                                     f"expected {want}")
+        return times, out
+
+
+def bf16_tree(tree):
+    """A numpy param tree as torch.bfloat16 leaves (rounded to nearest
+    even), which the checkpoint writer stores as bf16."""
+    return {k: bf16_tree(v) if isinstance(v, dict) else torch.from_numpy(v).bfloat16()
+            for k, v in tree.items()}
+
+
+def check_state_equal(G, source, rounded):
+    """Every parameter and buffer of `G` equals `source`'s, bit for bit,
+    or `source`'s rounded to bf16 if `rounded`; returns the count."""
+    want = source.state_dict()
+    got = G.state_dict()
+    if set(got) != set(want):
+        raise AssertionError("the loaded generator's state names differ")
+    for k, v in want.items():
+        ref = v.bfloat16().float() if rounded else v
+        if not torch.equal(got[k], ref):
+            raise AssertionError(f"{k}: loaded values differ from the source")
+    return len(want)
+
+
+def phase_checkpoint(G, cfg, device, card):
+    """Phase 11: `G` (built from `cfg`) written as f32 and as a bf16
+    export, each read back through `build_app_generator`; returns the
+    generator read from the f32 file and its app settings."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.apps.common import build_app_generator
+    from pix2pix3d_tpu_torch.bridge import params_to_jax
+    from pix2pix3d_tpu_torch.train.checkpoint import save_checkpoint
+
+    tree = params_to_jax(G)
+    exports = {"f32": {"G_ema": tree}, "bf16 export": {"G_ema": bf16_tree(tree)}}
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, state in exports.items():
+            path = os.path.join(tmp, name.replace(" ", "_") + ".ckpt")
+            t1 = time.perf_counter()
+            save_checkpoint(path, state, step=0, config={"g_config": cfg})
+            t_write = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            G_ld, app_ld = build_app_generator("seg2cat", checkpoint=path,
+                                               device=device)
+            torch.cuda.synchronize(device)
+            t_read = time.perf_counter() - t1
+            n = check_state_equal(G_ld, G, rounded=name != "f32")
+            log(f"checkpoint {name}: {os.path.getsize(path) / 2**20:.1f} MiB, "
+                f"write {t_write:.3f} s, read into build_app_generator "
+                f"{t_read:.3f} s (generator built and moved to the card "
+                f"included); {n} tensors equal the source "
+                + ("bit for bit" if name == "f32" else "rounded to bf16")
+                + f" [{card}]")
+            loaded[name] = (G_ld, app_ld)
+    phase_done("checkpoint", t0)
+    return loaded["f32"]
+
+
+def phase_apps(G_app, app, device, card, counts):
+    """Phase 12: generate_sample, render_video, extract_semantic_mesh and an
+    EditSession on `G_app`; neither kernel may launch."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.apps import extract_mesh as em
+    from pix2pix3d_tpu_torch.apps.common import inference
+    from pix2pix3d_tpu_torch.apps.edit import EditSession
+    from pix2pix3d_tpu_torch.apps.generate_samples import (frontal_pose,
+                                                           generate_sample)
+    from pix2pix3d_tpu_torch.apps.generate_video import render_video
+
+    res, nrr = G_app.img_resolution, app["neural_rendering_resolution"]
+    gen = torch.Generator().manual_seed(3)
+    mask_np = torch.randint(0, G_app.semantic_channels, (res, res, 1),
+                            generator=gen).float().numpy()
+    pose = frontal_pose("seg2cat", app, device)
+
+    def request():
+        return generate_sample(G_app, app, mask_np, pose, seed=1)
+
+    request()  # warm-up
+    times, outs = counts.requests("apps", request, 3, NO_LAUNCHES)
+    check_outputs(outs, res, nrr, G_app.semantic_channels)
+    log(f"apps generate_sample: 3 requests, per-request ms "
+        f"{[round(t, 3) for t in times]} median {statistics.median(times):.3f}; "
+        f"five outputs finite and of their shapes [{card}]")
+
+    calls = []
+    hook = G_app.backbone.synthesis.register_forward_hook(
+        lambda *a: calls.append(1))
+    try:
+        t1 = time.perf_counter()
+        frames, _ = counts.run("apps", lambda: render_video(
+            G_app, app, mask_np, pose, seed=1, n_frames=VIDEO_FRAMES,
+            pivot=(0, 0, -0.06)))
+        video_s = time.perf_counter() - t1
+    finally:
+        hook.remove()
+    if len(calls) != 1:
+        raise AssertionError(f"render_video ran the backbone {len(calls)} times")
+    if len(frames) != VIDEO_FRAMES or frames[0].shape != (res, res, 3):
+        raise AssertionError("render_video frames")
+    log(f"apps render_video: {VIDEO_FRAMES} frames in {video_s * 1e3:.1f} ms, "
+        f"{video_s * 1e3 / VIDEO_FRAMES:.1f} ms per frame (mapping and the one "
+        f"backbone run included; frames copied to the host); backbone runs "
+        f"{len(calls)} [{card}]")
+
+    with inference():
+        ws = G_app.mapping(
+            torch.randn((1, G_app.z_dim), generator=gen).to(device), pose[None],
+            {"mask": torch.from_numpy(mask_np)[None].to(device), "pose": pose[None]})
+    t1 = time.perf_counter()
+    grid, _ = counts.run("apps", lambda: em.sigma_field(
+        G_app, ws, resolution=MESH_RESOLUTION))
+    grid_s = time.perf_counter() - t1
+    level = float(np.quantile(grid, 0.9))
+    t1 = time.perf_counter()
+    em.marching_cubes(grid, level)
+    mc_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    verts, faces, colors = counts.run("apps", lambda: em.extract_semantic_mesh(
+        G_app, ws, resolution=MESH_RESOLUTION, threshold=level))
+    mesh_s = time.perf_counter() - t1
+    if not len(faces) or colors.shape != (len(verts), 3):
+        raise AssertionError("extract_semantic_mesh gave no mesh")
+    log(f"apps extract_semantic_mesh at {MESH_RESOLUTION}^3, threshold {level:.4f} "
+        f"(the grid's 90th percentile): sigma grid (backbone included) "
+        f"{grid_s:.3f} s, marching cubes (host) on it {mc_s:.3f} s, whole call "
+        f"{mesh_s:.3f} s; {len(verts)} vertices, {len(faces)} faces, "
+        f"{len(np.unique(colors, axis=0))} vertex colors [{card}]")
+
+    sess = EditSession(G_app, app, mask_np[..., 0], seed=0, radius=2.7,
+                       pivot=(0, 0, -0.06))
+    t1 = time.perf_counter()
+    img0, sem0, _ = counts.run("apps", lambda: sess.render(yaw=0.0))
+    first_s = time.perf_counter() - t1
+    if (img0.shape != (res, res, 3) or not np.isfinite(img0).all()
+            or sem0.shape != (res, res, G_app.semantic_channels)):
+        raise AssertionError("EditSession render")
+    ws_before = sess._ws
+    t1 = time.perf_counter()
+    img1, _, _ = counts.run("apps", lambda: sess.render(yaw=0.3))
+    slider_s = time.perf_counter() - t1
+    if sess._ws is not ws_before or np.allclose(img0, img1):
+        raise AssertionError("EditSession: a slider move re-ran the mapping "
+                             "or left the image unchanged")
+    sess.paint(slice(res * 3 // 10, res * 6 // 10),
+               slice(res * 3 // 10, res * 6 // 10), 3)
+    if sess._ws is not None:
+        raise AssertionError("EditSession: a brush edit kept ws")
+    img2, _, _ = counts.run("apps", lambda: sess.render(yaw=0.0))
+    if np.allclose(img0, img2):
+        raise AssertionError("EditSession: the edit left the image unchanged")
+    log(f"apps EditSession: first render (mapping + backbone) {first_s * 1e3:.1f} "
+        f"ms, slider render on cached planes {slider_s * 1e3:.1f} ms; checks of "
+        f"tests/test_edit_session.py hold [{card}]")
+    phase_done("apps", t0)
+
+
+def phase_apps_serving(G_app, app, device, card, counts):
+    """Phase 13: `G_app` with the serving rendering keys; decode_composite
+    launches once per `generate_sample`."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.apps.generate_samples import (frontal_pose,
+                                                           generate_sample)
+
+    res, nrr = G_app.img_resolution, app["neural_rendering_resolution"]
+    mask_np = torch.randint(0, G_app.semantic_channels, (res, res, 1),
+                            generator=torch.Generator().manual_seed(4)).float().numpy()
+    pose = frontal_pose("seg2cat", app, device)
+    G_app.rendering_kwargs.update(config.SERVING_RENDERING)
+
+    def request():
+        return generate_sample(G_app, app, mask_np, pose, seed=1)
+
+    request()  # warm-up
+    times, outs = counts.requests("apps-serving", request, 3,
+                                  ONE_DECODE_COMPOSITE)
+    check_outputs(outs, res, nrr, G_app.semantic_channels)
+    log(f"apps-serving generate_sample: 3 requests, decode_composite launches "
+        f"{counts.by_path['decode_composite']['apps-serving']}, "
+        f"late_separate_decode "
+        f"{counts.by_path['late_separate_decode']['apps-serving']}; per-request "
+        f"ms {[round(t, 3) for t in times]} median {statistics.median(times):.3f}; "
+        f"outputs finite [{card}]")
+    phase_done("apps-serving", t0)
+
+
+def phase_released(device, card, counts):
+    """Phase 14: one `generate_sample` of seg2face and of edge2car, full
+    width, random weights."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.apps.common import build_app_generator
+    from pix2pix3d_tpu_torch.apps.generate_samples import (frontal_pose,
+                                                           generate_sample)
+
+    gen = torch.Generator().manual_seed(5)
+    for name in ("seg2face", "edge2car"):
+        G, app = build_app_generator(name, device=device, seed=0)
+        res, nrr = G.img_resolution, app["neural_rendering_resolution"]
+        if G.data_type == "edge":
+            mask = (torch.rand((res, res, 1), generator=gen) > 0.9).float() * 255
+            if not (G.rendering_kwargs["white_back"] and nrr == 64):
+                raise AssertionError(f"{name}: white_back and nrr 64 expected")
+        else:
+            mask = torch.randint(0, G.semantic_channels, (res, res, 1),
+                                 generator=gen).float()
+        pose = frontal_pose(name, app, device)
+        t, out = counts.run(name, lambda: timed_requests(
+            lambda: generate_sample(G, app, mask.numpy(), pose, seed=2), 1))
+        check_outputs(out, res, nrr, G.semantic_channels)
+        log(f"{name}: {sum(p.numel() for p in G.parameters()) / 1e6:.1f} M params, "
+            f"{res}^2, {G.semantic_channels} semantic channels, nrr {nrr}, "
+            f"{type(G.backbone.mapping).__name__}; first request {t[0]:.1f} ms "
+            f"(cuDNN autotuning included); outputs finite and of their shapes "
+            f"[{card}]")
+        del G, out
+        torch.cuda.empty_cache()
+    phase_done("released configs", t0)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -477,7 +788,8 @@ def main():
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}; {n_sm} SMs, max SM clock "
         f"{sm_clock_mhz:.0f} MHz")
-    print(smi("name,power.limit"), flush=True)
+    card = smi("name,power.limit")
+    print(card, flush=True)
     phase_done("device", t0)
 
     # ---- 2. build
@@ -544,25 +856,12 @@ def main():
     request()  # warm-up (cuDNN autotuning, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel = dc.fused_decode_composite
-    kernel.launches = 0
-    times, outs = [], None
-    for i in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        outs = request()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-        if kernel.launches != i + 1:
-            raise AssertionError(f"request {i + 1}: kernel launch count "
-                                 f"{kernel.launches}, expected {i + 1}")
-    launches = kernel.launches
+    kernel, dkernel = dc.fused_decode_composite, lsd.late_separate_decode
+    counts = PathCounts({"decode_composite": kernel,
+                         "late_separate_decode": dkernel})
+    times, outs = counts.requests("serve", request, 3, ONE_DECODE_COMPOSITE)
+    launches = counts.by_path["decode_composite"]["serve"]
     peak = torch.cuda.max_memory_allocated()
-    if launches != 3:
-        raise AssertionError(f"decode_composite launched {launches} times in 3 "
-                             "requests, expected 3")
     expect = check_outputs(outs, res, nrr, G.semantic_channels)
     request_ms = statistics.median(times)
     log(f"serve: 3 requests, kernel launches {launches}; per-request ms "
@@ -686,7 +985,6 @@ def main():
 
     # ---- 8. late_separate_decode vs plain on seeded random inputs
     t0 = time.time()
-    dkernel = lsd.late_separate_decode
     with torch.no_grad(), precision.policy(False):
         for rows in DECODE_ROWS:
             reps = (3, 2) if rows > 10**6 else (10, 5)
@@ -756,21 +1054,10 @@ def main():
     request_importance()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = dkernel.launches = 0
-    times = []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        outs = request_importance()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    # the generator decodes with impl="ref": neither kernel may launch
+    times, outs = counts.requests("serve-importance", request_importance, 3,
+                                  NO_LAUNCHES)
     peak_imp = torch.cuda.max_memory_allocated()
-    if kernel.launches or dkernel.launches:
-        raise AssertionError(f"the impl='ref' requests launched decode_composite "
-                             f"{kernel.launches} and late_separate_decode "
-                             f"{dkernel.launches} times, expected 0")
     check_outputs(outs, res, APP_NRR, G.semantic_channels)
     log(f"serve-importance: 3 requests; shapes " + ", ".join(
         f"{k} {tuple(outs[k].shape)}" for k in expect) + "; all finite; "
@@ -803,16 +1090,16 @@ def main():
     with torch.no_grad(), precision.policy(False):
         lsd.late_separate_decode = recording
         try:
-            dkernel.launches = 0
-            got = render("kernel")
-            torch.cuda.synchronize()
-            d_launches = dkernel.launches
+            got = counts.run("importance-kernel", lambda: render("kernel"))
         finally:
             lsd.late_separate_decode = dkernel
         want = render("ref")
-    if d_launches != expected:
-        raise AssertionError(f"late_separate_decode launched {d_launches} times "
-                             f"in one importance render, expected {expected}")
+    d_launches = counts.by_path["late_separate_decode"]["importance-kernel"]
+    dc_launches = counts.by_path["decode_composite"]["importance-kernel"]
+    if (d_launches, dc_launches) != (expected, 0):
+        raise AssertionError(f"one importance render launched late_separate_decode "
+                             f"{d_launches} and decode_composite {dc_launches} "
+                             f"times, expected {expected} and 0")
     for name, g_, w_ in zip(("features", "depth", "weight sum"), got, want):
         abs_e, rel_e, used, _ = compare((g_,), (w_,), RENDER_TOL)
         log(f"importance render, kernel vs ref decoder {name:10s} "
@@ -848,6 +1135,25 @@ def main():
         f"{achieved(terms, dk_ms, sm_clock_mhz * 1e6, n_sm)}")
     phase_done("importance kernel", t0)
 
+    del captured, args, targs, got, want, planes
+    torch.cuda.empty_cache()
+    # ---- 11.-14. checkpoint, apps, apps-serving, released configs
+    G_app, app = phase_checkpoint(G, cfg, device, card)
+    del G
+    torch.cuda.empty_cache()
+    if app["neural_rendering_resolution"] != APP_NRR:
+        raise AssertionError(f"app nrr {app['neural_rendering_resolution']}")
+    phase_apps(G_app, app, device, card, counts)
+    for name, by_path in counts.by_path.items():
+        if by_path["apps"]:
+            raise AssertionError(f"the apps (impl='ref') launched {name}")
+    phase_apps_serving(G_app, app, device, card, counts)
+    del G_app
+    torch.cuda.empty_cache()
+    phase_released(device, card, counts)
+
+    for entry in report:
+        entry["launches_by_path"] = counts.by_path[entry["name"]]
     report.append({
         "name": "late_separate_decode", "route": "cuda",
         "source": "pix2pix3d_tpu_torch/csrc/late_separate_decode.cu",
@@ -855,7 +1161,8 @@ def main():
         "launches": d_launches, "max_abs_err": d_abs, "ms": dkc_ms,
         "plain_ms": dpc_ms, "bound_ms": db_ms, "bound_by": db_by,
         "library_ms": dlibc_ms, "device_ms": dk_ms, "plain_device_ms": dp_ms,
-        "library_device_ms": dlib_ms})
+        "library_device_ms": dlib_ms,
+        "launches_by_path": counts.by_path["late_separate_decode"]})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

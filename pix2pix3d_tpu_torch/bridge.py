@@ -1,4 +1,4 @@
-"""JAX param tree -> PyTorch `state_dict` for the port's modules.
+"""JAX param tree <-> PyTorch `state_dict` for the port's modules.
 
 Works on numpy arrays only, so it runs without JAX (callers hand it
 `jax.device_get(G.init(key))`).  The port names its modules after the JAX
@@ -10,6 +10,10 @@ entry `a.b.weight`; layouts are inverted on the way:
 - synthesis `const` HWC `[res, res, C]` -> CHW;
 - everything else as is (biases, `noise_const` [res, res],
   `noise_strength`, `w_avg`).
+
+`params_to_jax` is the inverse: it nests a module's `state_dict` under the
+JAX tree's keys with the JAX layouts, so the port writes checkpoints that
+the JAX package reads (`train/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -39,3 +43,31 @@ def params_from_jax(tree, prefix=""):
         else:
             out[path] = _convert(key, value)
     return out
+
+
+def _convert_back(name, t):
+    a = t.detach().cpu().numpy()
+    if name == "weight" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    elif name == "weight" and a.ndim == 2:
+        a = a.T
+    elif name == "const" and a.ndim == 3:
+        a = a.transpose(1, 2, 0)
+    return np.array(a, order="C")  # C-contiguous, keeps 0-d shapes
+
+
+def params_to_jax(module_or_state_dict):
+    """A module (or its `state_dict`) as the JAX package's nested param tree
+    of numpy arrays: OIHW -> HWIO, `[out, in]` -> `[in, out]`, `const` CHW
+    -> HWC, everything else as is."""
+    sd = module_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    tree = {}
+    for path, value in sd.items():
+        *parents, key = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = _convert_back(key, value)
+    return tree

@@ -1,7 +1,8 @@
 """Configuration presets (a copy of `pix2pix3d_tpu/config.py`).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-`preset_generator_config("seg2cat")` builds the flagship model's kwargs;
+`preset_generator_config(name)` builds the kwargs of a released model
+(seg2cat, seg2face, edge2car);
 `serving_generator_config("seg2cat")` adds the serving settings of
 `docs/serving_default.json` and `bench.py` (frustum sampler, fused decode+composite, 64 depth slabs in
 chunks of 8, f32 composite carry, bf16 tensors in 7 backbone/encoder
@@ -14,15 +15,23 @@ import copy
 
 
 # Rendering presets per dataset config (ref train.py:425-461).
-# Only the dataset and SR presets the port builds so far; the JAX package
-# has the full tables.
 RENDERING_PRESETS = {
+    "ffhq": dict(depth_resolution=48, depth_resolution_importance=48,
+                 ray_start=2.25, ray_end=3.3, box_warp=1,
+                 avg_camera_radius=2.7, avg_camera_pivot=[0, 0, 0.2]),
+    "celeba": dict(depth_resolution=48, depth_resolution_importance=48,
+                   ray_start=2.25, ray_end=3.3, box_warp=1,
+                   avg_camera_radius=2.7, avg_camera_pivot=[0, 0, 0.2]),
     "afhq": dict(depth_resolution=48, depth_resolution_importance=48,
                  ray_start=2.25, ray_end=3.3, box_warp=1,
                  avg_camera_radius=2.7, avg_camera_pivot=[0, 0, -0.06]),
+    "shapenet": dict(depth_resolution=64, depth_resolution_importance=64,
+                     ray_start=0.1, ray_end=2.6, box_warp=1.6, white_back=True,
+                     avg_camera_radius=1.7, avg_camera_pivot=[0, 0, 0]),
 }
 
-# SR module selection by output resolution (ref train.py:389-399).
+# SR module selection by output resolution (ref train.py:389-399).  The
+# JAX package's 256 -> SuperresolutionHybrid4X entry is not ported yet.
 SR_MODULES = {
     512: ("SuperresolutionHybrid8XDC", "SuperresolutionHybrid8XDC_semantic"),
     128: ("SuperresolutionHybrid2X", "SuperresolutionHybrid2X_semantic"),
@@ -34,6 +43,10 @@ def rendering_kwargs(cfg, resolution, gen_pose_cond=False, gpc_reg_prob=0.5,
                      density_reg_p_dist=0.004, reg_type="l1", decoder_lr_mul=1.0,
                      sr_module=None):
     """Full rendering_kwargs dict (ref train.py:401-461)."""
+    if resolution == 256:
+        raise NotImplementedError(
+            "resolution 256 (SuperresolutionHybrid4X) is not ported yet: "
+            "ROADMAP.md Queue 1 item 4")
     sr, sr_sem = SR_MODULES[resolution]
     if sr_module is not None:
         sr = sr_module
@@ -99,10 +112,14 @@ def generator_config(cfg="afhq", resolution=512, data_type="seg",
     )
 
 
-# The released-model configuration the port builds (ref train_scripts/*.sh).
+# The three released-model configurations (ref train_scripts/*.sh).
 PRESETS = {
     "seg2cat": dict(cfg="afhq", resolution=512, data_type="seg",
                     semantic_channels=6, gen_pose_cond=True),
+    "seg2face": dict(cfg="celeba", resolution=512, data_type="seg",
+                     semantic_channels=19, gen_pose_cond=True),
+    "edge2car": dict(cfg="shapenet", resolution=128, data_type="edge",
+                     semantic_channels=1, geometry_layer=9, gen_pose_cond=True),
 }
 
 

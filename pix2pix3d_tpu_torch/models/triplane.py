@@ -29,7 +29,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import resolve_device
-from ..nn.cond_mapping import MaskMappingNetworkDisentangle
+from ..nn.cond_mapping import (EdgeMappingNetworkDisentangle,
+                               MaskMappingNetworkDisentangle)
 from ..nn.layers import FullyConnected
 from ..nn.superresolution import build_superresolution
 from ..nn.synthesis import SynthesisNetwork
@@ -42,7 +43,22 @@ from ..render.frustum import frustum_render
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer
 
-MAPPING_REGISTRY = {"MaskMappingNetwork_disentangle": MaskMappingNetworkDisentangle}
+
+def _entangled_mapping(name):
+    def build(**kwargs):
+        raise NotImplementedError(
+            f"{name} (the entangled mapping) is not ported yet: ROADMAP.md "
+            "Queue 1 item 6")
+    return build
+
+
+MAPPING_REGISTRY = {
+    "MaskMappingNetwork_disentangle": MaskMappingNetworkDisentangle,
+    "EdgeMappingNetwork_disentangle": EdgeMappingNetworkDisentangle,
+    "MaskMappingNetwork": _entangled_mapping("MaskMappingNetwork"),
+    "EdgeMappingNetwork": _entangled_mapping("EdgeMappingNetwork"),
+}
+
 # profiler range names of the forward's stages, in order
 STAGES = ("mapping", "backbone", "render", "sr_rgb", "sr_semantic")
 # rendering_kwargs['decoder_impl'] of the frustum sampler: None (and the JAX
@@ -152,6 +168,7 @@ class TriPlaneSemanticEntangleGenerator(nn.Module):
         self.c_dim = c_dim
         self.img_resolution = img_resolution
         self.semantic_channels = semantic_channels
+        self.data_type = data_type
         self.backbone = GeneratorCond(z_dim, c_dim, w_dim, img_resolution=256,
                                       img_channels=32 * 3,
                                       mapping_kwargs=mapping_kwargs,

@@ -1,10 +1,12 @@
-"""Conditional mapping network: label map (+z, +c) -> ws.
+"""Conditional mapping networks: label or edge map (+z, +c) -> ws.
 
-Port of `MaskMappingNetworkDisentangle` from `pix2pix3d_tpu/nn/cond_mapping.py`
-(ref `training/triplane_cond.py:301-399`; the JAX `_CondMappingBase` is folded
-in), the variant every shipped seg config uses: the label-map encoder
-produces the first `geometry_layer` W+ latents (geometry); z and the camera
-c drive the remaining broadcast style latents (appearance).
+Port of `MaskMappingNetworkDisentangle` and `EdgeMappingNetworkDisentangle`
+from `pix2pix3d_tpu/nn/cond_mapping.py` (ref `training/triplane_cond.py
+:301-399,499-592`; the JAX `_CondMappingBase` is folded in), the variants
+every shipped config uses: the map's encoder produces the first
+`geometry_layer` W+ latents (geometry); z and the camera c drive the
+remaining broadcast style latents (appearance).  Seg configs feed the
+encoder a one-hot label map, edge configs the raw 1-channel edge map.
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ class MaskMappingNetworkDisentangle(nn.Module):
                  num_layers=8, embed_features=None, layer_features=None,
                  activation="lrelu", lr_multiplier=0.01, encoder_channel_base=1,
                  encoder_channel_max=512, encoder_num_fp16_res=0, geometry_layer=7,
-                 **unused):
+                 one_hot=True, **unused):
         super().__init__()
         self.z_dim = z_dim
         self.c_dim = c_dim
+        self.in_resolution = in_resolution
         self.in_channels = in_channels
+        self.one_hot = one_hot
         self.num_ws = num_ws
         self.num_layers = num_layers
         self.geometry_layer = geometry_layer
@@ -64,10 +68,21 @@ class MaskMappingNetworkDisentangle(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
 
-        mask = _one_hot_mask(batch["mask"], self.in_channels)
+        mask = batch["mask"]
+        mask = (_one_hot_mask(mask, self.in_channels) if self.one_hot
+                else mask.permute(0, 3, 1, 2).float())
         y = self.embed_mask(mask)["ws"].float()                  # [N, G, w_dim]
         x = x[:, None, :].repeat(1, self.num_ws - self.geometry_layer, 1)
         x = torch.cat([y, x], dim=1)
         if truncation_psi != 1:
             x = self.w_avg + truncation_psi * (x - self.w_avg)
         return x
+
+
+class EdgeMappingNetworkDisentangle(MaskMappingNetworkDisentangle):
+    """Edge-map variant (ref `triplane_cond.py:499-592`): the raw 1-channel
+    edge map, no one-hot."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["one_hot"] = False
+        super().__init__(*args, **kwargs)

@@ -30,6 +30,9 @@ from pix2pix3d_tpu.render.camera import (LookAtPoseSampler, fov_to_intrinsics,
 
 from pix2pix3d_tpu_torch import bridge
 from pix2pix3d_tpu_torch import config as tconfig
+from pix2pix3d_tpu_torch.apps.common import (APP_PRESETS, build_app_generator,
+                                             intrinsics_for)
+from pix2pix3d_tpu_torch.apps.generate_video import orbit_poses
 from pix2pix3d_tpu_torch.models import build_generator as tbuild
 from pix2pix3d_tpu_torch.ops import decode_composite as dc
 from pix2pix3d_tpu_torch.render import camera as tcam
@@ -129,20 +132,39 @@ def _port_sources():
     return files
 
 
-def _imports(path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+def _imports(path, module_level=False):
+    """Absolute imports of `path`; with `module_level`, only those outside
+    function bodies (run when the module is imported)."""
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            inside = in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if not (module_level and inside):
+                if isinstance(child, ast.Import):
+                    yield from (a.name for a in child.names)
+                elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                    yield child.module
+            yield from walk(child, inside)
+    yield from walk(ast.parse(path.read_text(), filename=str(path)), False)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    banned = ("jax", "jaxlib", "flax", "pix2pix3d_tpu")
+    banned = ("jax", "jaxlib", "flax", "msgpack", "pix2pix3d_tpu")
     found = [(str(p.relative_to(ROOT)), m) for p in _port_sources()
              for m in _imports(p) if m.split(".")[0] in banned]
     assert not found, found
     assert len(_port_sources()) > 20
+
+
+def test_port_imports_pil_only_inside_functions():
+    """The card's machine has no Pillow: the port imports PIL only where an
+    image is read or written, inside a function, as the JAX apps do."""
+    found = [str(p.relative_to(ROOT)) for p in _port_sources()
+             for m in _imports(p, module_level=True) if m.split(".")[0] == "PIL"]
+    assert not found, found
+    inside = [p for p in _port_sources()
+              if any(m.split(".")[0] == "PIL" for m in _imports(p))]
+    assert len(inside) >= 3   # the apps and train/viz.py do import it
 
 
 def test_port_carries_no_weight_or_binary_files():
@@ -157,6 +179,9 @@ def test_port_carries_no_weight_or_binary_files():
 
 def test_public_entry_defaults_to_the_card():
     entries = {tbuild: lambda: tbuild(**_small_cfg(tconfig)),
+               build_app_generator: lambda: build_app_generator("seg2cat"),
+               intrinsics_for: lambda: intrinsics_for(APP_PRESETS["seg2cat"]),
+               orbit_poses: lambda: orbit_poses(APP_PRESETS["seg2cat"], 2),
                tcam.LookAtPoseSampler.sample:
                    lambda: tcam.LookAtPoseSampler.sample(0.0, 0.0, [0, 0, 0]),
                tcam.fov_to_intrinsics: lambda: tcam.fov_to_intrinsics(18.837)}
