@@ -85,6 +85,45 @@ Phases, each printing its name and wall time:
 14. released configs -- one `generate_sample` each of seg2face (512², 19
                classes) and edge2car (128², edge mapping, white_back, nrr
                64) at full width, random weights: shapes and finiteness.
+15. train-parity -- one `Trainer.step` at step_idx 0 (cross-view renders,
+               Gmain, Greg, Dmain + w_avg, Dreg, D_semantic main and reg,
+               EMA) of the CPU tests' small configuration (128², cbase 512,
+               cmax 16, 4+4 depth samples, nrr 16, batch 2, the recipe's
+               loss settings), once on the card and once on the CPU, f32
+               with TF32 off, equal weights and equal CPU generators: every
+               stat within 1e-3 relative + 1e-5, each network's Adam mu/nu
+               per leaf within 1e-2 (2e-2) of the leaf's largest, and at
+               most 2% of each network's entries (G, D, D_semantic, G_ema)
+               apart by more than 1e-5 after the step (the first Adam step,
+               b1 = 0, moves an entry by lr times the sign of its gradient,
+               which rounding flips where the gradient is noise).  Then R1
+               through the recipe's bf16 discriminator blocks at that width
+               (`check_r1_bf16`): the gradfix convolutions against
+               `F.conv2d`'s own double backward (f32), and bf16 against f32,
+               within R1_TOL.
+16. train    -- the seg2cat training recipe at full width (512², random
+               weights from seed 0, batch 4, no accumulation) through the
+               CLI's `main` with the recipe's flags, as `python -m
+               pix2pix3d_tpu_torch.train` runs it (its loop sets f32 with
+               TF32 off; the fp16 blocks run bf16), on a synthetic folder of
+               16 512² images and 6-class masks written with the port's PNG
+               encoder: steps 0-3 (step 0 runs every phase), each timed
+               alone, every stat finite, TF32 off inside the loop, w_avg
+               moved, G_ema != G after step 1, stats.jsonl, the image grids
+               and the snapshot written, neither kernel launched (the
+               training path decodes with impl="ref").  Before step 2 the
+               full training state goes through a checkpoint file into a
+               fresh trainer (equal bit for bit) and into an in-memory copy;
+               after the loop's step 2 both run step 2 from its inputs and
+               generator state under PyTorch's deterministic algorithms and
+               must agree bit for bit; the loop's own step 2 (default
+               algorithms) against them is printed.  The fresh trainer then
+               runs two steps under the profiler: one with every phase (host
+               and device activity), each phase's device span from its
+               `phase_*` range; one without the reg phases (device activity
+               only), the idle share.  Step 0 ms, steps 1-3
+               and their median, images/s and peak memory come from the
+               loop's own steps, none of them profiled.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -755,6 +794,528 @@ def phase_released(device, card, counts):
     phase_done("released configs", t0)
 
 
+# phase train-parity: the small training configuration of the CPU tests
+# (tests/test_torch_train_phases.py, tests/test_loss_gating.py::_tiny_loss)
+TINY_RES, TINY_NRR, TINY_B = 128, 16, 2
+TINY_LOSS = dict(r1_gamma=5.0, random_c_prob=0.5, lambda_l1=1.0, lambda_lpips=1.0,
+                 blur_init_sigma=10, blur_fade_kimg=25, lambda_D_semantic=0.1,
+                 only_raw_recons=True, lambda_cross_view=1e-4,
+                 neural_rendering_resolution_initial=TINY_NRR)
+TINY_D = dict(c_dim=25, img_resolution=TINY_RES, channel_base=512, channel_max=16,
+              num_fp16_res=0, epilogue_kwargs={"mbstd_group_size": 2})
+# the seg2cat training recipe (README.md's flags; train.py's defaults for
+# the rest): generator, discriminators and loss as the port's CLI builds them
+RECIPE_FLAGS = ["--cfg", "afhq", "--data_type", "seg", "--batch", "4", "--gamma", "5",
+                "--semantic_channels", "6", "--render_mask", "True", "--dis_mask", "True",
+                "--neural_rendering_resolution_initial", "128", "--gen_pose_cond", "True",
+                "--random_c_prob", "0.5", "--lambda_d_semantic", "0.1",
+                "--lambda_lpips", "1", "--lambda_cross_view", "1e-4",
+                "--only_raw_recons", "True"]
+TRAIN_IMAGES = 16
+TRAIN_STEPS = 4
+# R1 through the bf16 blocks (train-parity): relative L2 per weight and of
+# the input gradients, and every leaf's largest difference as a share of
+# the network's largest gradient entry (tests/test_torch_train_bf16.py).
+# bf16 against f32: JAX's own bf16 R1 lies 0.06-0.09 (relative L2) and 0.10
+# from its f32 on the CPU, so 0.2 and 0.1; f32 gradfix against F.conv2d's
+# double backward: other summation orders only, 1e-3 and 1e-4
+R1_TOL = {"bf16": (0.2, 0.1), "f32": (1e-3, 1e-4)}
+
+def _tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], prefix + (k,))
+    else:
+        yield "/".join(prefix), np.asarray(tree)
+
+
+def compare_states(a, b, frac_tol, abs_tol=1e-5):
+    """Per network of two `Trainer.state_tree()`s: every leaf finite, and
+    the share of entries that differ by more than `abs_tol` at most
+    `frac_tol`; returns {net: (max |diff|, share above abs_tol)}."""
+    out = {}
+    for net in ("G", "D", "D_semantic", "G_ema"):
+        la, lb = dict(_tree_leaves(a[net])), dict(_tree_leaves(b[net]))
+        if set(la) != set(lb):
+            raise AssertionError(f"{net}: the states' leaves differ")
+        n = above = 0
+        worst = 0.0
+        for k, x in la.items():
+            if not (np.isfinite(x).all() and np.isfinite(lb[k]).all()):
+                raise AssertionError(f"{net} {k}: non-finite values")
+            d = np.abs(x - lb[k])
+            worst = max(worst, float(d.max()))
+            above += int((d > abs_tol).sum())
+            n += d.size
+        if above > frac_tol * n:
+            raise AssertionError(f"{net}: {above} of {n} entries differ by more "
+                                 f"than {abs_tol} (max {worst:.3e})")
+        out[net] = (worst, above / n)
+    return out
+
+
+def compare_adam(a, b, scale):
+    """Each network's Adam mu and nu per leaf: |diff| <= scale * max|ref|
+    (+1e-6 for mu, +1e-12 for nu), and equal counts."""
+    for net in ("G", "D", "D_semantic"):
+        sa, sb = a[f"opt_{net}"]["0"], b[f"opt_{net}"]["0"]
+        if int(sa["count"]) != int(sb["count"]):
+            raise AssertionError(f"{net}: Adam counts {sa['count']} != {sb['count']}")
+        for moment, floor, sc in (("mu", 1e-6, scale), ("nu", 1e-12, 2 * scale)):
+            ref = dict(_tree_leaves(sb[moment]))
+            for k, x in _tree_leaves(sa[moment]):
+                err = float(np.abs(x - ref[k]).max())
+                if not err <= sc * float(np.abs(ref[k]).max()) + floor:
+                    raise AssertionError(f"{net} Adam {moment} {k}: {err:.3e}")
+
+
+def device_state_diff(a, b, optimizers=False):
+    """{network: max |diff|} between two trainers' parameters and buffers
+    (and, with `optimizers`, their Adam moments and steps), on the card."""
+    out = {}
+    for key, (ma, oa) in a.networks().items():
+        mb, ob = b.networks()[key]
+        sb = mb.state_dict()
+        d = max(float((v.float() - sb[k].float()).abs().max())
+                for k, v in ma.state_dict().items())
+        if optimizers and oa is not None:
+            for pa, pb in zip(ma.parameters(), mb.parameters()):
+                for name in ("exp_avg", "exp_avg_sq", "step"):
+                    d = max(d, float((oa.state[pa][name].float()
+                                      - ob.state[pb][name].float()).abs().max()))
+        out[key] = d
+    return out
+
+
+def r1_gradients(D, img, raw, c):
+    """R1 of `D` at these inputs: ({parameter: gradient of the penalty
+    sum(|dD/dimage|^2) + sum(|dD/dimage_raw|^2)}, (both input gradients)),
+    f32; parameters the penalty does not reach are left out."""
+    img, raw = img.clone().requires_grad_(True), raw.clone().requires_grad_(True)
+    out = D({"image": img, "image_raw": raw}, c).sum()
+    gi, gr = torch.autograd.grad(out, [img, raw], create_graph=True)
+    pen = gi.float().square().sum() + gr.float().square().sum()
+    names = [n for n, _ in D.named_parameters()]
+    grads = torch.autograd.grad(pen, list(D.parameters()), allow_unused=True)
+    return ({n: g.float() for n, g in zip(names, grads) if g is not None},
+            (gi.detach().float(), gr.detach().float()))
+
+
+def r1_apart(got, want):
+    """(largest relative L2 over the weights and both input gradients,
+    largest |difference| of any leaf / the largest entry of `want`)."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    scale = max(float(g.abs().max()) for g in want[0].values())
+    if set(got[0]) != set(want[0]):
+        raise AssertionError("R1 reaches other parameters")
+    l2 = max([rel(got[0][n], w) for n, w in want[0].items() if n.endswith("weight")]
+             + [rel(a, b) for a, b in zip(got[1], want[1])])
+    share = max(float((got[0][n] - w).abs().max()) for n, w in want[0].items()) / scale
+    return l2, share
+
+
+def check_r1_bf16(device, card):
+    """R1 through the recipe's bf16 discriminator blocks (num_fp16_res 4,
+    conv_clamp 256) at the small width, on the card: the port's gradfix
+    convolutions against `F.conv2d`'s own double backward in f32, and the
+    bf16 blocks against the same weights in f32, each within R1_TOL;
+    PyTorch's own bf16 double backward against f32 is printed."""
+    from pix2pix3d_tpu_torch.models.triplane import init_parameters
+    from pix2pix3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from pix2pix3d_tpu_torch.ops import conv2d_gradfix
+
+    kw = dict(TINY_D, num_fp16_res=4, conv_clamp=256)
+    D16 = DualDiscriminator(img_channels=3, **kw)
+    init_parameters(D16, torch.Generator().manual_seed(5))
+    D32 = DualDiscriminator(img_channels=3, **dict(kw, num_fp16_res=0))
+    D32.load_state_dict(D16.state_dict())
+    D16, D32 = D16.to(device), D32.to(device)
+    rng = np.random.RandomState(4)
+    img, raw, c = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
+                   for shape in ((TINY_B, 3, TINY_RES, TINY_RES),
+                                 (TINY_B, 3, TINY_NRR, TINY_NRR), (TINY_B, 25)))
+    runs, ms = {}, {}
+    for name, D, enabled in (("f32", D32, True), ("f32 plain", D32, False),
+                             ("bf16", D16, True), ("bf16 plain", D16, False)):
+        conv2d_gradfix.enabled = enabled
+        try:
+            r1_gradients(D, img, raw, c)      # cuDNN's first calls
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            runs[name] = r1_gradients(D, img, raw, c)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t1) * 1e3
+        finally:
+            conv2d_gradfix.enabled = True
+    for got, want, (l2_tol, share_tol) in (
+            ("f32", "f32 plain", R1_TOL["f32"]), ("bf16", "f32", R1_TOL["bf16"])):
+        l2, share = r1_apart(runs[got], runs[want])
+        if not (l2 <= l2_tol and share <= share_tol):
+            raise AssertionError(f"R1 {got} vs {want}: relative L2 {l2:.3e} (gate "
+                                 f"{l2_tol}), largest difference {share:.3e} of the "
+                                 f"largest entry (gate {share_tol})")
+        log(f"train-parity R1 {got} (gradfix) vs {want}: relative L2 {l2:.3e} (gate "
+            f"{l2_tol}), largest difference {share:.3e} of the largest entry (gate "
+            f"{share_tol}) [{card}]")
+    l2, share = r1_apart(runs["bf16 plain"], runs["f32"])
+    log(f"train-parity R1 bf16 through F.conv2d's own double backward vs f32: "
+        f"relative L2 {l2:.3e}, largest difference {share:.3e} (not gated); one R1 "
+        f"ms: " + ", ".join(f"{n} {t:.1f}" for n, t in ms.items()) + f" [{card}]")
+
+
+def phase_train_parity(device, card):
+    """Phase 15: one `Trainer.step` at step_idx 0 (cross-view renders, all
+    six phases, EMA) of the small training configuration on the card and on
+    the CPU, f32 with TF32 off, from equal weights and equal CPU generators
+    (so both devices see the same random numbers)."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.models.triplane import init_parameters
+    from pix2pix3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    from pix2pix3d_tpu_torch.train.loss import Pix2Pix3DLoss
+    from pix2pix3d_tpu_torch.train.lpips import LPIPS
+    from pix2pix3d_tpu_torch.train.trainer import Trainer
+
+    cfg = config.generator_config(cfg="afhq", resolution=TINY_RES, data_type="seg",
+                                  semantic_channels=6, cbase=512, cmax=16,
+                                  sr_num_fp16_res=0, render_mask=True,
+                                  gen_pose_cond=True)
+    cfg["rendering_kwargs"].update(depth_resolution=4, depth_resolution_importance=4)
+    cfg["mapping_kwargs"]["in_resolution"] = TINY_RES
+    cfg["mapping_kwargs"]["encoder_channel_base"] = 1 / 128
+    rng = np.random.RandomState(0)
+    c2w = LookAtPoseSampler.sample(np.pi / 2, np.pi / 2, [0, 0, -0.06], radius=2.7,
+                                   batch_size=TINY_B, device="cpu")
+    pose = pose_to_conditioning(c2w, fov_to_intrinsics(18.837, device="cpu"))
+    batch = {"image": torch.from_numpy(rng.rand(TINY_B, TINY_RES, TINY_RES, 3)
+                                       .astype(np.float32) * 2 - 1),
+             "mask": torch.from_numpy(rng.randint(0, 6, (TINY_B, TINY_RES, TINY_RES, 1))
+                                      .astype(np.float32)),
+             "pose": pose}
+    gen_z = torch.from_numpy(rng.randn(4, TINY_B, 512).astype(np.float32))
+    gen_c = pose[None].repeat(4, 1, 1)
+
+    def run(dev):
+        G = build_generator(device="cpu", seed=0, train=True, **cfg)
+        D = DualDiscriminator(img_channels=3, **TINY_D)
+        Ds = DualDiscriminator(img_channels=9, **TINY_D)
+        gen = torch.Generator().manual_seed(1)
+        init_parameters(D, gen)
+        init_parameters(Ds, gen)
+        loss = Pix2Pix3DLoss(G.to(dev), D.to(dev), D_semantic=Ds.to(dev),
+                             lpips=LPIPS().to(dev), **TINY_LOSS)
+        trainer = Trainer(loss)
+        t1 = time.perf_counter()
+        stats = trainer.step({k: v.to(dev) for k, v in batch.items()}, gen_z.to(dev),
+                             gen_c.to(dev), torch.Generator().manual_seed(3),
+                             step_idx=0, cur_nimg=0, batch_size=TINY_B)
+        return stats, trainer.state_tree(), (time.perf_counter() - t1) * 1e3
+
+    with precision.policy(False):
+        s_gpu, st_gpu, ms_gpu = run(device)
+        s_cpu, st_cpu, ms_cpu = run(torch.device("cpu"))
+        check_r1_bf16(device, card)
+    if set(s_gpu) != set(s_cpu) or len(s_gpu) < 14:
+        raise AssertionError(f"stats differ: {sorted(set(s_gpu) ^ set(s_cpu))}")
+    for k in s_cpu:
+        if not np.isfinite(s_gpu[k]).all():
+            raise AssertionError(f"{k}: non-finite on the card")
+        if not np.all(np.abs(s_gpu[k] - s_cpu[k]) <= 1e-3 * np.abs(s_cpu[k]) + 1e-5):
+            raise AssertionError(f"{k}: card {s_gpu[k]} vs CPU {s_cpu[k]}")
+    compare_adam(st_gpu, st_cpu, 1e-2)
+    diffs = compare_states(st_gpu, st_cpu, frac_tol=0.02)
+    log(f"train-parity: {len(s_cpu)} stats (every phase's loss and scores) agree "
+        f"card vs CPU to 1e-3 relative + 1e-5; Adam mu/nu per leaf to 1e-2 (2e-2) "
+        f"of the leaf's largest; step {ms_gpu:.1f} ms on the card, {ms_cpu:.1f} ms "
+        f"on the CPU [{card}]")
+    for net, (d, share) in diffs.items():
+        log(f"train-parity {net}: max |card - CPU| {d:.3e}; share of entries "
+            f"above 1e-5: {share:.5f} (gate 0.02)")
+    phase_done("train-parity", t0)
+
+
+def write_training_folder(root, n, res=512, classes=6):
+    """A seeded synthetic seg2cat folder: `n` RGB images and 6-class masks
+    as PNGs (the port's encoder) and `LookAtPoseSampler` poses in
+    dataset.json; returns (image dir, mask dir)."""
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    from pix2pix3d_tpu_torch.utils.png import write_png
+    imgs, masks = os.path.join(root, "imgs"), os.path.join(root, "masks")
+    os.makedirs(imgs)
+    os.makedirs(masks)
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:res, 0:res] / res
+    labels = []
+    intr = fov_to_intrinsics(18.837, device="cpu")
+    for i in range(n):
+        name = f"img{i:05d}.png"
+        base = rng.rand(3)[:, None, None] * np.stack([xx, yy, 1 - xx])
+        img = np.clip(base.transpose(1, 2, 0) * 255 + rng.randint(0, 32, (res, res, 3)),
+                      0, 255).astype(np.uint8)
+        write_png(os.path.join(imgs, name), img, level=1)
+        r = np.hypot(xx - 0.5, yy - 0.5)
+        mask = np.minimum((r * classes * (1 + 0.2 * rng.rand())).astype(np.uint8),
+                          classes - 1)
+        write_png(os.path.join(masks, name), mask, level=1)
+        c2w = LookAtPoseSampler.sample(np.pi / 2 + rng.uniform(-0.4, 0.4),
+                                       np.pi / 2 + rng.uniform(-0.2, 0.2),
+                                       [0, 0, -0.06], radius=2.7, device="cpu")
+        labels.append([name, pose_to_conditioning(c2w, intr)[0].tolist()])
+    with open(os.path.join(imgs, "dataset.json"), "w") as f:
+        json.dump({"labels": labels}, f)
+    return imgs, masks
+
+
+def profile_step(step, ranges, host):
+    """`step()` under torch.profiler, with host activity too if `host`:
+    (wall ms, device busy ms, {range: device span ms}, the 8 costliest
+    device ops as (name, ms, count)).  `ranges` are the `record_function`
+    ranges the step opens; with host activity the profiler gives each a
+    device span (its first kernel to its last, the backward's included),
+    which the busy time leaves out."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    device = {e.key: e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    ops = [e for k, e in device.items() if k not in ranges]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    if busy == 0:
+        raise AssertionError("the profiler recorded no device time")
+    spans = {k: device[k].self_device_time_total / 1e3 for k in ranges if k in device}
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return wall, busy, spans, [(e.key, e.self_device_time_total / 1e3, e.count)
+                               for e in top]
+
+
+def cuda_generator(state):
+    """A `torch.Generator` on the card in `state` (`get_state()`'s)."""
+    gen = torch.Generator(device="cuda")
+    gen.set_state(state)
+    return gen
+
+
+def deterministic_steps(trainers, inputs, gen_state, kw):
+    """One `Trainer.step` on each trainer, from the same inputs and
+    generator state, under PyTorch's deterministic algorithms (cuDNN's
+    deterministic ones, the gathers' backward without atomics); returns
+    (their stats, the ops PyTorch flagged as having no deterministic
+    version), restoring the settings."""
+    import warnings
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    stats = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for tr in trainers:
+                stats.append(tr.step(*inputs, cuda_generator(gen_state), **kw))
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[2:4]
+        if old[4] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old[4]
+    flagged = sorted({str(w.message).split(" does not have")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+    return stats, flagged
+
+
+def phase_train(device, card, counts):
+    """Phase 16: the seg2cat training recipe at full width through the
+    port's CLI (`main` with the recipe's flags, as `python -m
+    pix2pix3d_tpu_torch.train` runs it; random weights from seed 0, a
+    synthetic folder): steps 0-3, step 0 with every phase, each timed; a
+    resume check and two profiled steps on copies of the trainer before
+    step 2; the run's outputs."""
+    t0 = time.time()
+    import copy
+    from pix2pix3d_tpu_torch.models.triplane import STAGES
+    from pix2pix3d_tpu_torch.train import __main__ as cli
+    from pix2pix3d_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from pix2pix3d_tpu_torch.train.loop import build_training
+    from pix2pix3d_tpu_torch.train.trainer import Trainer
+
+    record = {"ms": [], "peak": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        imgs, masks = write_training_folder(tmp, TRAIN_IMAGES)
+        log(f"train: {TRAIN_IMAGES} synthetic 512^2 images and masks written in "
+            f"{time.perf_counter() - t1:.2f} s")
+        # steps 0-3 at batch 4, one tick at their end with its image grids
+        # and network snapshot
+        argv = (["--outdir", os.path.join(tmp, "runs"), "--data", imgs,
+                 "--mask_data", masks] + RECIPE_FLAGS
+                + ["--kimg", str(4 * TRAIN_STEPS / 1e3), "--tick",
+                   str(4 * TRAIN_STEPS / 1e3), "--snap", "1"])
+        conf = cli.run_config(cli.parser().parse_args(argv))
+
+        def resume_copies(trainer):
+            """The full training state through a checkpoint file into a
+            fresh trainer (equal bit for bit), and an in-memory copy."""
+            path = os.path.join(tmp, "state.ckpt")
+            t2 = time.perf_counter()
+            save_checkpoint(path, trainer.state_tree(), step=8)
+            t_w = time.perf_counter() - t2
+            fresh = build_training(conf["g_config"], 25, d_kwargs=conf["d_kwargs"],
+                                   loss_kwargs=conf["loss_kwargs"], device=device,
+                                   random_seed=123)
+            t2 = time.perf_counter()
+            tree, step = load_checkpoint(path, fresh.state_tree())
+            fresh.load_state_tree(tree)
+            t_r = time.perf_counter() - t2
+            size = os.path.getsize(path)
+            os.remove(path)
+            del tree
+            reloaded = device_state_diff(trainer, fresh, optimizers=True)
+            if any(reloaded.values()) or step != 8:
+                raise AssertionError(f"reloaded state differs: {reloaded}, step {step}")
+            log(f"train resume: full training state {size / 2**30:.2f} GiB, write "
+                f"{t_w:.2f} s (state to the host included), read + load {t_r:.2f} s "
+                f"(the template from the fresh trainer included); the fresh "
+                f"trainer's state equals the saved one bit for bit [{card}]")
+            return fresh, copy.deepcopy(trainer)
+
+        def check_resume(trainer, stats, fresh, twin, inputs, gen_state, kw):
+            """Step 2 from the reloaded state and from the in-memory copy,
+            both deterministic: equal bit for bit.  The loop's own step 2
+            (default algorithms) against them is printed."""
+            (s_fresh, s_twin), flagged = deterministic_steps(
+                (fresh, twin), inputs, gen_state, kw)
+            diffs = device_state_diff(twin, fresh, optimizers=True)
+            same = all(np.array_equal(s_fresh[k], s_twin[k]) for k in s_twin)
+            if any(diffs.values()) or not same or set(s_fresh) != set(stats):
+                raise AssertionError(f"resumed step 2 differs from the uninterrupted "
+                                     f"one: {diffs}, stats equal {same}; ops without "
+                                     f"a deterministic version: {flagged}")
+            spread = device_state_diff(trainer, twin)
+            log(f"train resume: step 2 from the checkpoint equals step 2 from the "
+                f"in-memory state bit for bit (parameters, buffers, Adam moments "
+                f"and counts, stats), both under deterministic algorithms; ops "
+                f"flagged as without a deterministic version: {flagged or 'none'}; "
+                f"the loop's own step 2 (default algorithms) apart from them by "
+                + "; ".join(f"{n} {d:.2e}" for n, d in spread.items()) + f" [{card}]")
+
+        def profiled_steps(tr, inputs, generator, kw):
+            """Two steps under the profiler: one with every phase (the
+            phase set of step_idx 16) with host and device activity, for
+            each phase's device span; one without the reg phases with
+            device activity only, for the idle share."""
+            for label, idx, names, host in (
+                    ("every phase", 16, ("cv_prep", "gmain", "greg", "dmain", "dreg",
+                                         "dsmain", "dsreg", "ema"), True),
+                    ("no reg phases", 5, ("cv_prep", "gmain", "dmain", "dsmain",
+                                          "ema"), False)):
+                wall, busy, spans, top = profile_step(
+                    lambda: tr.step(*inputs, generator, **dict(kw, step_idx=idx)),
+                    [f"phase_{n}" for n in names] + list(STAGES), host)
+                msg = (f"train: a step with {label} under the profiler ("
+                       f"{'host and device' if host else 'device'} activity): wall "
+                       f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                       f"{1 - busy / wall:.3f}")
+                if host:
+                    missing = [n for n in names if f"phase_{n}" not in spans]
+                    if missing:
+                        raise AssertionError(f"no device span for phases {missing}")
+                    msg += "; device span per phase (ms): " + ", ".join(
+                        f"{n} {spans[f'phase_{n}']:.1f}" for n in names)
+                log(msg + f" [{card}]")
+                for key, ms, count in top:
+                    log(f"  {ms:8.3f} ms {count:5d}x  {key[:90]}")
+
+        def step_fn(trainer, batch, gen_z, gen_c, generator, **kw):
+            tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            if tf32 != (False, False):
+                raise AssertionError(f"the training loop runs with TF32 {tf32}")
+            idx = kw["step_idx"]
+            if idx == 0:
+                record["w_avg0"] = trainer.G.backbone.mapping.w_avg.clone()
+            if idx == 2:
+                fresh, twin = resume_copies(trainer)
+                gen_state = generator.get_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t2 = time.perf_counter()
+            stats = Trainer.step(trainer, batch, gen_z, gen_c, generator, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t2) * 1e3
+            record["ms"].append(wall)
+            record["peak"].append(torch.cuda.max_memory_allocated())
+            log(f"train step {idx}: {wall:.1f} ms, peak "
+                f"{record['peak'][-1] / 2**30:.2f} GiB [{card}]")
+            for k, v in stats.items():
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"step {idx}: {k} not finite: {v}")
+            if idx == 0:
+                moved = (trainer.G.backbone.mapping.w_avg - record["w_avg0"]).abs().max()
+                if not moved > 0:
+                    raise AssertionError("w_avg did not move in step 0")
+                log(f"train: w_avg moved by up to {float(moved):.3e} in step 0")
+            if idx == 1:
+                g, e = trainer.G.state_dict(), trainer.G_ema.state_dict()
+                diff = max(float((g[k] - e[k]).abs().max()) for k in g)
+                if not diff > 0:
+                    raise AssertionError("G_ema equals G after step 1")
+                log(f"train: G_ema differs from G after step 1 by up to {diff:.3e}")
+            if idx == 2:
+                inputs = (batch, gen_z, gen_c)
+                check_resume(trainer, stats, fresh, twin, inputs, gen_state, kw)
+                del twin
+                torch.cuda.empty_cache()
+                profiled_steps(fresh, inputs, cuda_generator(gen_state), kw)
+                del fresh
+                torch.cuda.empty_cache()
+            return stats
+
+        run_dir = counts.run("train", lambda: cli.main(argv, step_fn=step_fn))
+        files = set(os.listdir(run_dir))
+        for name in ("stats.jsonl", "reals.png", "mask.png", "fakes000000.png",
+                     "fakes000000_label.png", "fakes000000_mv.png",
+                     "network-snapshot-000000.ckpt", "network-final.ckpt"):
+            if name not in files:
+                raise AssertionError(f"train: {name} not written")
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            ticks = [json.loads(line) for line in f]
+        if not ticks or not all(np.isfinite(v) for v in ticks[-1].values()):
+            raise AssertionError("stats.jsonl holds no finite tick")
+    torch.cuda.empty_cache()
+    for name, by_path in counts.by_path.items():
+        if by_path["train"]:
+            raise AssertionError(f"training launched {name} {by_path['train']} times")
+    if len(record["ms"]) != TRAIN_STEPS:
+        raise AssertionError(f"{len(record['ms'])} steps ran, not {TRAIN_STEPS}")
+    med = statistics.median(record["ms"][1:])
+    log(f"train: step 0 (every phase) {record['ms'][0]:.1f} ms; steps 1-3 "
+        + ", ".join(f"{m:.1f}" for m in record["ms"][1:]) + f" ms, median {med:.1f} ms; "
+        f"{4 / med * 1e3:.2f} images/s at batch 4 (steps 1-3, none profiled); peak "
+        f"max_memory_allocated {max(record['peak']) / 2**30:.2f} GiB [{card}]")
+    log(f"train: stats.jsonl tick: Loss/G/loss {ticks[-1]['Loss/G/loss']:.4f}, "
+        f"Loss/D/loss {ticks[-1]['Loss/D/loss']:.4f}; grids, network snapshot and "
+        f"network-final.ckpt written; both kernels' launch counts 0 on this path")
+    phase_done("train", t0)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -1151,6 +1712,10 @@ def main():
     del G_app
     torch.cuda.empty_cache()
     phase_released(device, card, counts)
+
+    # ---- 15.-16. training: card vs CPU at a small width, then the recipe
+    phase_train_parity(device, card)
+    phase_train(device, card, counts)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

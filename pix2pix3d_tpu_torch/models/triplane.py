@@ -323,11 +323,30 @@ def init_parameters(module, generator):
             reset(generator)
 
 
-def build_generator(class_name, device="cuda", seed=0, **kwargs):
+def build_generator(class_name, device="cuda", seed=0, train=False, **kwargs):
     """Construct a generator by (reference-compatible) class name, with
-    weights drawn from `torch.Generator().manual_seed(seed)`, in eval mode
-    on `device` (default: the card; raises if there is none)."""
+    weights drawn from `torch.Generator().manual_seed(seed)`, on `device`
+    (default: the card; raises if there is none): in eval mode with frozen
+    parameters for serving and the apps, or with `train=True` in train mode
+    with parameters that take gradients (the trainer's G)."""
     device = resolve_device(device)
     G = GENERATOR_REGISTRY[class_name.split(".")[-1]](**kwargs)
     init_parameters(G, torch.Generator().manual_seed(seed))
+    if train:
+        return G.to(device).train().requires_grad_(True)
     return G.to(device).eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def update_w_avg(G, ws_mean):
+    """The D phase's w_avg update of the conditional mapping (JAX
+    `parallel/trainer.py:342-358`, ref `run_G(update_emas=True)`):
+    `w_avg = ws_mean + beta * (w_avg - ws_mean)` from the batch-mean ws
+    `[num_ws, w_dim]`."""
+    mapping = G.backbone.mapping
+    w_avg = getattr(mapping, "w_avg", None)
+    if w_avg is None:
+        return
+    if w_avg.ndim == 1 and ws_mean.ndim == 2:
+        ws_mean = ws_mean[0]
+    w_avg.copy_(ws_mean + mapping.w_avg_beta * (w_avg - ws_mean))

@@ -27,9 +27,9 @@ def _one_hot_mask(mask, num_channels):
 class MaskMappingNetworkDisentangle(nn.Module):
     def __init__(self, z_dim, c_dim, in_resolution, in_channels, w_dim, num_ws,
                  num_layers=8, embed_features=None, layer_features=None,
-                 activation="lrelu", lr_multiplier=0.01, encoder_channel_base=1,
-                 encoder_channel_max=512, encoder_num_fp16_res=0, geometry_layer=7,
-                 one_hot=True, **unused):
+                 activation="lrelu", lr_multiplier=0.01, w_avg_beta=0.995,
+                 encoder_channel_base=1, encoder_channel_max=512,
+                 encoder_num_fp16_res=0, geometry_layer=7, one_hot=True, **unused):
         super().__init__()
         self.z_dim = z_dim
         self.c_dim = c_dim
@@ -39,6 +39,7 @@ class MaskMappingNetworkDisentangle(nn.Module):
         self.num_ws = num_ws
         self.num_layers = num_layers
         self.geometry_layer = geometry_layer
+        self.w_avg_beta = w_avg_beta
         embed_features = w_dim if embed_features is None else embed_features
         layer_features = w_dim if layer_features is None else layer_features
         features = ([z_dim + (embed_features if c_dim else 0)]

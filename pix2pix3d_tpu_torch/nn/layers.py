@@ -153,3 +153,20 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, padding=0,
     if noise is not None:
         x = x + noise.to(x.dtype)
     return x
+
+
+def minibatch_stddev(x, group_size=4, num_channels=1):
+    """Minibatch stddev feature (ref `MinibatchStdLayer`,
+    `networks_stylegan2.py:648-672`), NCHW: x `[N, C, H, W]` ->
+    `[N, C + num_channels, H, W]`."""
+    n, c, h, w = x.shape
+    g = min(group_size, n) if group_size is not None else n
+    f = num_channels
+    cc = c // f
+    y = x.float().reshape(g, -1, f, cc, h, w)         # [G, n, F, c, H, W]
+    y = y - y.mean(dim=0, keepdim=True)
+    y = y.square().mean(dim=0)                        # [n, F, c, H, W]
+    y = torch.sqrt(y + 1e-8)
+    y = y.mean(dim=(2, 3, 4))                         # [n, F]
+    y = y.reshape(-1, f, 1, 1).repeat(g, 1, h, w).to(x.dtype)
+    return torch.cat([x, y], dim=1)

@@ -26,14 +26,24 @@ _SQRT2 = math.sqrt(2.0)
 
 
 def softplus(x):
-    """`log(1 + exp(x))` as `jax.nn.softplus` computes it (no threshold)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    """`log(1 + exp(x))` as `jax.nn.softplus` computes it (no threshold).
+    `max(x, 0)` is written `(x + |x|) / 2`, the same values, so that the
+    gradient at x = 0 is 1/2 as JAX's (`clamp_min` would give 1 there, and
+    the decoder's first layer sits exactly at 0 for every point outside the
+    planes while its bias is still 0)."""
+    return (x + x.abs()) * 0.5 + torch.log1p(torch.exp(-x.abs()))
+
+
+def leaky_relu(x, alpha):
+    """`jax.nn.leaky_relu`: x where x >= 0, else alpha * x; the gradient at
+    x = 0 is 1, as JAX's (`F.leaky_relu`'s is alpha there)."""
+    return torch.where(x >= 0, x, x * alpha)
 
 
 activation_funcs = {
     "linear": _ActSpec(lambda x, alpha: x, 0.0, 1.0),
     "relu": _ActSpec(lambda x, alpha: F.relu(x), 0.0, _SQRT2),
-    "lrelu": _ActSpec(lambda x, alpha: F.leaky_relu(x, alpha), 0.2, _SQRT2),
+    "lrelu": _ActSpec(leaky_relu, 0.2, _SQRT2),
     "tanh": _ActSpec(lambda x, alpha: torch.tanh(x), 0.0, 1.0),
     "sigmoid": _ActSpec(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0),
     "elu": _ActSpec(lambda x, alpha: F.elu(x), 0.0, 1.0),

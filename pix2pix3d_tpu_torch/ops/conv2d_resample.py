@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from . import conv2d_gradfix
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
 
@@ -22,7 +23,7 @@ def _conv2d(x, w, stride=1, padding=(0, 0, 0, 0), groups=1, flip_weight=True):
         w = w.flip([2, 3])
     if any(padding):
         x = F.pad(x, list(padding))
-    return F.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
+    return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
 
 
 def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,

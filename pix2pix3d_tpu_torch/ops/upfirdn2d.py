@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import conv2d_gradfix
+
 
 def _parse_scaling(scaling):
     if isinstance(scaling, int):
@@ -94,10 +96,12 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
     if f.ndim == 2:
-        x = F.conv2d(x, f[None, None].repeat(c, 1, 1, 1), groups=c)
+        x = conv2d_gradfix.conv2d(x, f[None, None].repeat(c, 1, 1, 1), groups=c)
     else:
-        x = F.conv2d(x, f[None, None, None, :].repeat(c, 1, 1, 1), groups=c)
-        x = F.conv2d(x, f[None, None, :, None].repeat(c, 1, 1, 1), groups=c)
+        x = conv2d_gradfix.conv2d(x, f[None, None, None, :].repeat(c, 1, 1, 1),
+                                  groups=c)
+        x = conv2d_gradfix.conv2d(x, f[None, None, :, None].repeat(c, 1, 1, 1),
+                                  groups=c)
     # 4. decimate
     if downx > 1 or downy > 1:
         x = x[:, :, ::downy, ::downx]
@@ -122,3 +126,14 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
 
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """Downsample NCHW images with FIR anti-aliasing (ref `upfirdn2d.py:354-389`)."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [px0 + (fw - downx + 1) // 2, px1 + (fw - downx) // 2,
+         py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
+                     gain=gain)

@@ -8,8 +8,11 @@ layout (`bridge.params_to_jax` makes one from a port module,
 `bridge.params_from_jax` loads one into it).  So the JAX package reads what
 this module writes, and the other way round.
 
-`load_checkpoint` takes no `state_template`: optimizer templates belong to
-training, which is not ported yet.
+A full training checkpoint holds G, D, G_ema, D_semantic and each network's
+optax Adam state (`opt_<name>`: `{"0": {count, mu, nu}, "1": {}}`, the
+`to_state_dict` form of `optax.adam`'s state); `Trainer.state_tree()` makes
+one and `Trainer.load_state_tree` loads one, so a run resumes in either
+package.
 """
 
 from __future__ import annotations
@@ -31,21 +34,44 @@ def save_checkpoint(path, state, config=None, step=None):
     payload = {"state": state}
     if step is not None:
         payload["step"] = step
-    data = flax_msgpack.msgpack_serialize(payload)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(data)
+        flax_msgpack.msgpack_dump(payload, f)
     os.replace(tmp, path)
     if config is not None:
         with open(path + ".json", "w") as f:
             json.dump(config, f, indent=2, default=str)
 
 
-def load_checkpoint(path):
-    """(state tree, step or None); bf16 leaves come back widened to f32."""
+def _match_template(state, template, path=()):
+    """`state` checked against `template` (same keys, leaf shapes) with
+    each leaf cast to the template leaf's dtype, as flax's
+    `from_state_dict(template, state)` restores the JAX package's."""
+    if isinstance(template, dict):
+        if not isinstance(state, dict) or set(state) != set(template):
+            raise ValueError(f"checkpoint tree at {'/'.join(path) or '<root>'} "
+                             f"has keys {sorted(state) if isinstance(state, dict) else state!r}, "
+                             f"the template {sorted(template)}")
+        return {k: _match_template(state[k], template[k], path + (k,))
+                for k in template}
+    t = np.asarray(template)
+    a = np.asarray(state)
+    if a.shape != t.shape:
+        raise ValueError(f"checkpoint leaf {'/'.join(path)} has shape {a.shape}, "
+                         f"the template {t.shape}")
+    return a.astype(t.dtype, copy=False)
+
+
+def load_checkpoint(path, state_template=None):
+    """(state tree, step or None); bf16 leaves come back widened to f32.
+    With `state_template` (e.g. `Trainer.state_tree()`), the tree must have
+    the template's keys and leaf shapes, and leaves take its dtypes."""
     with open(path, "rb") as f:
         payload = flax_msgpack.msgpack_restore(f.read())
-    return payload["state"], payload.get("step")
+    state = payload["state"]
+    if state_template is not None:
+        state = _match_template(state, state_template)
+    return state, payload.get("step")
 
 
 def load_ema_params(path):

@@ -1,10 +1,13 @@
 """Visualization helpers, port of `pix2pix3d_tpu/train/viz.py`: mask
 colorization and image grids (ref `training/utils.py:3-15`,
-`training_loop.py:110-126`).  PIL is imported inside `save_image_grid`."""
+`training_loop.py:110-126`).  Grids are written with the port's own PNG
+encoder (`utils/png.py`): Pillow is not a dependency of the port."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.png import write_png
 
 # 19-color palette (CelebAMask-style) + fallback colors for more classes.
 _PALETTE = np.array([
@@ -26,9 +29,8 @@ def color_mask(mask):
 
 
 def save_image_grid(images, path, grid_cols=None):
-    """Save `[N, H, W, C]` images (uint8 range) as one PNG grid."""
-    import PIL.Image
-
+    """Save `[N, H, W, C]` images (uint8 range) as one PNG grid; returns
+    the grid `[rows * H, cols * W, C]` (uint8)."""
     images = np.asarray(images)
     images = np.clip(np.rint(images), 0, 255).astype(np.uint8)
     n, h, w, c = images.shape
@@ -39,6 +41,5 @@ def save_image_grid(images, path, grid_cols=None):
     for i in range(n):
         r, col = divmod(i, grid_cols)
         grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = images[i]
-    if c == 1:
-        grid = grid[:, :, 0]
-    PIL.Image.fromarray(grid).save(path)
+    write_png(path, grid)
+    return grid

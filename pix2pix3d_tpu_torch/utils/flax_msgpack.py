@@ -28,6 +28,7 @@ view into the bytes it was read from (bf16 leaves are new arrays).
 
 from __future__ import annotations
 
+import io
 import struct
 
 import numpy as np
@@ -213,25 +214,27 @@ _EXT = ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF), (0xC9, ">I", 0xFFFFFFFF))
 _FIXEXT_CODE = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
 
 
-def _pack_ext(out, code, payload):
-    n = len(payload)
+def _ext_header(out, code, n):
+    """The header of an extension object of type `code` and `n` bytes."""
     if n in _FIXEXT_CODE:
         out.append(_FIXEXT_CODE[n])
     else:
         _pack_len(out, n, None, 0, _EXT)
     out += struct.pack(">b", code)
-    out += payload
 
 
-def _ndarray_to_bytes(shape, dtype_name, raw):
-    """flax's `_ndarray_to_bytes`: the array `(shape, dtype name, bytes)`."""
+def _array_head(code, shape, dtype_name, raw):
+    """Everything of an array leaf before its data: the extension header
+    and flax's `_ndarray_to_bytes` prefix `(shape, dtype name, bin
+    header)`."""
+    prefix = bytearray()
+    _pack_len(prefix, 3, 0x90, 16, _ARRAY)
+    _pack_value(prefix, list(shape), ())
+    _pack_value(prefix, dtype_name, ())
+    _pack_len(prefix, raw.nbytes, None, 0, _BIN)
     out = bytearray()
-    _pack_len(out, 3, 0x90, 16, _ARRAY)
-    _pack_value(out, list(shape), ())
-    _pack_value(out, dtype_name, ())
-    _pack_len(out, len(raw), None, 0, _BIN)
-    out += raw
-    return bytes(out)
+    _ext_header(out, code, len(prefix) + raw.nbytes)
+    return out + prefix
 
 
 def _array_leaf(x, path):
@@ -240,7 +243,7 @@ def _array_leaf(x, path):
         x = x.detach().cpu().contiguous()
         if x.dtype == torch.bfloat16:
             bits = x.view(torch.int16).numpy()
-            return tuple(x.shape), "bfloat16", bits.tobytes("C")
+            return tuple(x.shape), "bfloat16", _raw(bits)
         x = x.numpy()
     if x.dtype.hasobject or x.dtype.fields is not None:
         raise ValueError(f"leaf {'/'.join(map(str, path))!r}: object and "
@@ -249,7 +252,13 @@ def _array_leaf(x, path):
         raise ValueError(f"leaf {'/'.join(map(str, path))!r} has {x.nbytes} "
                          f"bytes, more than MAX_CHUNK_SIZE ({MAX_CHUNK_SIZE}); "
                          "chunked leaves are not written")
-    return x.shape, x.dtype.name, x.tobytes("C")
+    return x.shape, x.dtype.name, _raw(x)
+
+
+def _raw(a):
+    """The C-order bytes of array `a` as a memoryview (no copy when `a` is
+    C-contiguous)."""
+    return memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
 def _pack_value(out, x, path):
@@ -279,23 +288,54 @@ def _pack_value(out, x, path):
         for i, v in enumerate(x):
             _pack_value(out, v, path + (i,))
     elif isinstance(x, (np.ndarray, torch.Tensor)):
-        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(*_array_leaf(x, path)))
+        shape, name, raw = _array_leaf(x, path)
+        out += _array_head(_EXT_NDARRAY, shape, name, raw)
+        out += raw
     elif isinstance(x, np.generic):
         a = np.asarray(x)
-        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(a.shape, a.dtype.name,
-                                                        a.tobytes("C")))
+        raw = _raw(a)
+        out += _array_head(_EXT_NPSCALAR, a.shape, a.dtype.name, raw)
+        out += raw
     elif type(x) is complex:
         inner = bytearray()
         _pack_value(inner, [x.real, x.imag], path)
-        _pack_ext(out, _EXT_COMPLEX, bytes(inner))
+        _ext_header(out, _EXT_COMPLEX, len(inner))
+        out += inner
     else:
         raise TypeError(f"leaf {'/'.join(map(str, path))!r} of type "
                         f"{type(x).__name__} cannot be written")
 
 
+def _dump_value(f, x, path):
+    if isinstance(x, dict):
+        head = bytearray()
+        _pack_len(head, len(x), 0x80, 16, _MAP)
+        f.write(head)
+        for k in sorted(x):
+            key = bytearray()
+            _pack_value(key, k, path)
+            f.write(key)
+            _dump_value(f, x[k], path + (k,))
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        shape, name, raw = _array_leaf(x, path)
+        f.write(_array_head(_EXT_NDARRAY, shape, name, raw))
+        f.write(raw)
+    else:
+        out = bytearray()
+        _pack_value(out, x, path)
+        f.write(out)
+
+
+def msgpack_dump(tree, f):
+    """Write `tree` (see `msgpack_serialize`) to the binary file `f`, each
+    array's data straight from its buffer (no copy of the whole tree in
+    memory)."""
+    _dump_value(f, tree, ())
+
+
 def msgpack_serialize(tree):
     """`tree` (nested dicts of numpy arrays, numpy scalars, torch tensors and
     Python scalars) as bytes that flax's `msgpack_restore` reads."""
-    out = bytearray()
-    _pack_value(out, tree, ())
-    return bytes(out)
+    buf = io.BytesIO()
+    msgpack_dump(tree, buf)
+    return buf.getvalue()

@@ -156,6 +156,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(_port_sources()) > 20
 
 
+def test_import_rules_cover_the_trainer():
+    """The trainer's modules and its CLI are among the sources the two
+    import checks read."""
+    sources = set(_port_sources())
+    for name in ("trainer", "loss", "loop", "dataset", "native_loader", "lpips",
+                 "stats", "ema", "checkpoint", "viz", "__main__"):
+        assert PORT / "train" / f"{name}.py" in sources, name
+    assert PORT / "utils" / "png.py" in sources
+
+
 def test_port_imports_pil_only_inside_functions():
     """The card's machine has no Pillow: the port imports PIL only where an
     image is read or written, inside a function, as the JAX apps do."""

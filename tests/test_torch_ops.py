@@ -145,6 +145,31 @@ def test_resize_bilinear_matches_jax(src, dst, antialias):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("src,dst,antialias", [
+    ((128, 128), (512, 512), True),   # DualDiscriminator: raw image up to 512
+    ((512, 512), (128, 128), True),   # the real image's raw target
+    ((32, 32), (66, 66), False),      # filtered_resizing 'classic': size*2+2
+    ((24, 40), (16, 56), True),       # non-square, one axis each way
+    ((24, 40), (16, 56), False),
+])
+def test_resize_bilinear_and_its_gradient_match_interpolate(src, dst, antialias):
+    """The products' values and input gradient are F.interpolate's (f32,
+    other summation orders: 1e-5)."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(2, 3, *src).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(2, 3, *dst).astype(np.float32))
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got = tresize.resize_bilinear(xa, dst, antialias=antialias)
+    want = torch.nn.functional.interpolate(xb, size=dst, mode="bilinear",
+                                           align_corners=False, antialias=antialias)
+    (got * gy).sum().backward()
+    (want * gy).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xa.grad.numpy(), xb.grad.numpy(), rtol=1e-5, atol=1e-5)
+    assert tresize.resize_bilinear(x.bfloat16(), dst, antialias).dtype == torch.bfloat16
+
+
 def test_precision_policy_sets_and_restores_tf32():
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     with precision.policy(False):
