@@ -118,12 +118,48 @@ Phases, each printing its name and wall time:
                generator state under PyTorch's deterministic algorithms and
                must agree bit for bit; the loop's own step 2 (default
                algorithms) against them is printed.  The fresh trainer then
-               runs two steps under the profiler: one with every phase (host
-               and device activity), each phase's device span from its
-               `phase_*` range; one without the reg phases (device activity
-               only), the idle share.  Step 0 ms, steps 1-3
+               runs one step without the reg phases, then one more under
+               the profiler (device activity only): the idle share.  (Each phase's device
+               span comes from phase 17's profiled step: tracing the host
+               costs ~45 s a step.)  Step 0 ms, steps 1-3
                and their median, images/s and peak memory come from the
                loop's own steps, none of them profiled.
+17. train-aug -- ADA.  The pipe (train.py's set) at p=0 returns a
+               [4, 512, 512, 6] batch bit for bit on the card; the pipe and
+               one R1 phase (p=1) at phase 15's small width, card against
+               CPU on the same draws.  The recipe of phase 16 with `--aug
+               fixed --p 0.2` through the CLI for 4 steps, a snapshot at its
+               tick (TensorBoard, the fd trend): step 0, steps 1-3 and
+               their median, images/s, peak memory, and after step 3 one
+               extra step with every phase on a copy of the trainer, then
+               one more under the profiler (host and device activity: each
+               phase's device span, the idle share).  Then `--aug ada --target=-1.5` for 8 steps in ticks
+               of 4: the logged `Progress/augment_p` must equal
+               `ada_update_p` folded over the logged `Loss/signs/real`, and
+               move above 0.
+18. sinks    -- phase 17's run directory: every record of its TensorBoard
+               event file passes the length and data CRC-32C checks of a
+               reader in this script (7 records: header, scalars, the
+               trend, four grids); quality.jsonl holds a finite
+               `fd_proxy_real_fake` (a skipped trend writes none).
+19. train-frustum -- `--sampler frustum` (train.py's defaults: 96 slabs
+               in chunks of 8, bf16 slabs): one G main phase, card against
+               CPU at the small width with f32 slabs (without the
+               cross-view term: one render); the recipe for 4 steps with
+               the numbers of phase 17 (its profiled step without the reg
+               phases, which do not render); after step 3 the G main phase
+               at full width: every gradient entry finite (before the
+               trainer's nan_to_num), its peak memory with `frustum_remat`
+               on and off (off reported, also if it does not fit).
+20. train-remat -- `--remat True` for 4 steps, beside phase 16's numbers;
+               from the state after step 1, one copy with remat and one
+               without run step 2 from its inputs and generator state under
+               deterministic algorithms: equal bit for bit.
+21. autograd guard -- each kernel wrapper, called on the card with an input
+               that requires grad under grad mode, raises before it
+               launches; under `torch.no_grad()` it runs.
+Both kernels' launch counts stay 0 on every path of phases 17-21: the
+training path decodes with impl="ref", as the JAX trainer does.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -150,6 +186,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1147,8 +1184,8 @@ def phase_train(device, card, counts):
     port's CLI (`main` with the recipe's flags, as `python -m
     pix2pix3d_tpu_torch.train` runs it; random weights from seed 0, a
     synthetic folder): steps 0-3, step 0 with every phase, each timed; a
-    resume check and two profiled steps on copies of the trainer before
-    step 2; the run's outputs."""
+    resume check and a profiled step on copies of the trainer before step
+    2; the run's outputs."""
     t0 = time.time()
     import copy
     from pix2pix3d_tpu_torch.models.triplane import STAGES
@@ -1218,31 +1255,21 @@ def phase_train(device, card, counts):
                 + "; ".join(f"{n} {d:.2e}" for n, d in spread.items()) + f" [{card}]")
 
         def profiled_steps(tr, inputs, generator, kw):
-            """Two steps under the profiler: one with every phase (the
-            phase set of step_idx 16) with host and device activity, for
-            each phase's device span; one without the reg phases with
-            device activity only, for the idle share."""
-            for label, idx, names, host in (
-                    ("every phase", 16, ("cv_prep", "gmain", "greg", "dmain", "dreg",
-                                         "dsmain", "dsreg", "ema"), True),
-                    ("no reg phases", 5, ("cv_prep", "gmain", "dmain", "dsmain",
-                                          "ema"), False)):
-                wall, busy, spans, top = profile_step(
-                    lambda: tr.step(*inputs, generator, **dict(kw, step_idx=idx)),
-                    [f"phase_{n}" for n in names] + list(STAGES), host)
-                msg = (f"train: a step with {label} under the profiler ("
-                       f"{'host and device' if host else 'device'} activity): wall "
-                       f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
-                       f"{1 - busy / wall:.3f}")
-                if host:
-                    missing = [n for n in names if f"phase_{n}" not in spans]
-                    if missing:
-                        raise AssertionError(f"no device span for phases {missing}")
-                    msg += "; device span per phase (ms): " + ", ".join(
-                        f"{n} {spans[f'phase_{n}']:.1f}" for n in names)
-                log(msg + f" [{card}]")
-                for key, ms, count in top:
-                    log(f"  {ms:8.3f} ms {count:5d}x  {key[:90]}")
+            """One step without the reg phases under the profiler, device
+            activity only, after one unprofiled warm-up step of the same
+            trainer (its first step allocates): the idle share.  (Each
+            phase's device span comes from phase 17's profiled step with
+            host activity, on the same recipe with augmentation: tracing the
+            host costs ~45 s a step.)"""
+            tr.step(*inputs, generator, **dict(kw, step_idx=5))
+            wall, busy, _, top = profile_step(
+                lambda: tr.step(*inputs, generator, **dict(kw, step_idx=5)),
+                [f"phase_{n}" for n in PHASES_NO_REG] + list(STAGES), False)
+            log(f"train: a step with no reg phases under the profiler (device "
+                f"activity): wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / wall:.3f} [{card}]")
+            for key, ms, count in top:
+                log(f"  {ms:8.3f} ms {count:5d}x  {key[:90]}")
 
         def step_fn(trainer, batch, gen_z, gen_c, generator, **kw):
             tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -1306,6 +1333,7 @@ def phase_train(device, card, counts):
     if len(record["ms"]) != TRAIN_STEPS:
         raise AssertionError(f"{len(record['ms'])} steps ran, not {TRAIN_STEPS}")
     med = statistics.median(record["ms"][1:])
+    TRAIN_RESULTS["train"] = dict(record, median=med)
     log(f"train: step 0 (every phase) {record['ms'][0]:.1f} ms; steps 1-3 "
         + ", ".join(f"{m:.1f}" for m in record["ms"][1:]) + f" ms, median {med:.1f} ms; "
         f"{4 / med * 1e3:.2f} images/s at batch 4 (steps 1-3, none profiled); peak "
@@ -1314,6 +1342,514 @@ def phase_train(device, card, counts):
         f"Loss/D/loss {ticks[-1]['Loss/D/loss']:.4f}; grids, network snapshot and "
         f"network-final.ckpt written; both kernels' launch counts 0 on this path")
     phase_done("train", t0)
+
+
+# ---------------------------------------------------------------------------
+# phases 17-21 (the rest of the one-card trainer)
+
+# phase 17's fixed augmentation probability and ADA run (8 steps, ticks of
+# 4); the ADA target -1.5 lies below any mean of signs, so that p moves up
+# at every update (from random weights E[sign(D(real))] lies below
+# train.py's 0.6, and p would stay clipped at 0)
+AUG_FLAGS = ["--aug", "fixed", "--p", "0.2"]
+ADA_STEPS = 8
+ADA_TARGET = -1.5
+# small-width card-vs-CPU checks of phases 17-18: each leaf's largest
+# difference within 1e-3 of the leaf's largest entry + 1e-6 (the tolerance
+# of the CPU tests against JAX, tests/test_torch_train_phases.py: other
+# summation orders, amplified by R1's double backward), the loss 1e-4
+SMALL_GRAD_TOL, SMALL_LOSS_TOL = 1e-3, 1e-4
+# the results of phase 16, for the phases that compare with it
+TRAIN_RESULTS = {}
+# the trainer's `phase_*` ranges: every phase (step_idx 16), and a step
+# without the reg phases (step_idx 5)
+PHASES = ("cv_prep", "gmain", "greg", "dmain", "dreg", "dsmain", "dsreg", "ema")
+PHASES_NO_REG = ("cv_prep", "gmain", "dmain", "dsmain", "ema")
+
+
+def crc32c_table():
+    table = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C = crc32c_table()
+
+
+def masked_crc(data):
+    """TFRecord's masked CRC-32C, independent of the port's writer."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC32C[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def read_tb_records(path):
+    """The payloads of a TensorBoard event file; each record's length and
+    data CRCs must hold."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, i = [], 0
+    while i < len(data):
+        header = data[i:i + 8]
+        (length,) = struct.unpack("<Q", header)
+        if struct.unpack("<I", data[i + 8:i + 12])[0] != masked_crc(header):
+            raise AssertionError(f"{path}: record {len(out)} length CRC")
+        payload = data[i + 12:i + 12 + length]
+        if struct.unpack("<I", data[i + 12 + length:i + 16 + length])[0] \
+                != masked_crc(payload):
+            raise AssertionError(f"{path}: record {len(out)} data CRC")
+        out.append(payload)
+        i += 16 + length
+    return out
+
+
+def small_loss(device, aug=None, rendering=None, **loss_kw):
+    """The small training configuration of phase 15 on `device` (weights
+    from the same seeds on every device), with an augmentation pipe of
+    `aug` kwargs, extra rendering keys and loss settings."""
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.models.triplane import init_parameters
+    from pix2pix3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from pix2pix3d_tpu_torch.train.augment import AugmentPipe
+    from pix2pix3d_tpu_torch.train.loss import Pix2Pix3DLoss
+    from pix2pix3d_tpu_torch.train.lpips import LPIPS
+
+    cfg = config.generator_config(cfg="afhq", resolution=TINY_RES, data_type="seg",
+                                  semantic_channels=6, cbase=512, cmax=16,
+                                  sr_num_fp16_res=0, render_mask=True,
+                                  gen_pose_cond=True)
+    cfg["rendering_kwargs"].update(depth_resolution=4, depth_resolution_importance=4,
+                                   **(rendering or {}))
+    cfg["mapping_kwargs"]["in_resolution"] = TINY_RES
+    cfg["mapping_kwargs"]["encoder_channel_base"] = 1 / 128
+    G = build_generator(device="cpu", seed=0, train=True, **cfg)
+    D = DualDiscriminator(img_channels=3, **TINY_D)
+    Ds = DualDiscriminator(img_channels=9, **TINY_D)
+    gen = torch.Generator().manual_seed(1)
+    init_parameters(D, gen)
+    init_parameters(Ds, gen)
+    pipe = None if aug is None else AugmentPipe(**aug)
+    return Pix2Pix3DLoss(G.to(device), D.to(device), D_semantic=Ds.to(device),
+                         lpips=LPIPS().to(device), augment_pipe=pipe,
+                         **dict(TINY_LOSS, **loss_kw))
+
+
+def small_batch(device, b=TINY_B):
+    """Phase 15's small batch (its first `b` images), latents and random
+    poses, on `device`."""
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    rng = np.random.RandomState(0)
+    c2w = LookAtPoseSampler.sample(np.pi / 2, np.pi / 2, [0, 0, -0.06], radius=2.7,
+                                   batch_size=TINY_B, device="cpu")
+    pose = pose_to_conditioning(c2w, fov_to_intrinsics(18.837, device="cpu"))
+    batch = {"image": torch.from_numpy(rng.rand(TINY_B, TINY_RES, TINY_RES, 3)
+                                       .astype(np.float32) * 2 - 1),
+             "mask": torch.from_numpy(rng.randint(0, 6, (TINY_B, TINY_RES, TINY_RES, 1))
+                                      .astype(np.float32)),
+             "pose": pose}
+    c2w_r = LookAtPoseSampler.sample(np.pi / 2 + 0.4, np.pi / 2 - 0.2, [0, 0, -0.06],
+                                     radius=2.7, batch_size=TINY_B, device="cpu")
+    gen_c = pose_to_conditioning(c2w_r, fov_to_intrinsics(18.837, device="cpu"))
+    gen_z = torch.from_numpy(rng.randn(TINY_B, 512).astype(np.float32))
+    return ({k: v[:b].to(device) for k, v in batch.items()}, gen_z[:b].to(device),
+            gen_c[:b].to(device))
+
+
+def phase_grads(loss, module, fn):
+    """(loss value, {parameter: gradient}) of `fn()` (a phase returning
+    (loss, aux)) w.r.t. `module`, the other networks frozen."""
+    from pix2pix3d_tpu_torch.train.trainer import _set_trainable
+    nets = (loss.G, loss.D, loss.D_semantic)
+    _set_trainable(module, nets)
+    value, _ = fn(loss)
+    params = dict(module.named_parameters())
+    grads = torch.autograd.grad(value, list(params.values()), allow_unused=True)
+    _set_trainable(None, nets)
+    return float(value.detach()), {
+        k: (torch.zeros_like(p) if g is None else g).float().cpu()
+        for (k, p), g in zip(params.items(), grads)}
+
+
+def card_vs_cpu(label, device, card, build, module_of, fn, b=TINY_B):
+    """One phase on the card and on the CPU at the small width, f32 with
+    TF32 off, from equal weights and equal CPU generators: the loss within
+    SMALL_LOSS_TOL, each gradient leaf within SMALL_GRAD_TOL of its largest
+    entry; returns the largest share."""
+    from pix2pix3d_tpu_torch.ops import precision
+    out = []
+    with precision.policy(False):
+        for dev in (device, torch.device("cpu")):
+            loss = build(dev)
+            out.append(phase_grads(loss, module_of(loss),
+                                   lambda L: fn(L, *small_batch(dev, b),
+                                                torch.Generator().manual_seed(9))))
+            del loss
+    (v_gpu, g_gpu), (v_cpu, g_cpu) = out
+    if not (math.isfinite(v_gpu) and abs(v_gpu - v_cpu) <= SMALL_LOSS_TOL * abs(v_cpu)):
+        raise AssertionError(f"{label}: loss card {v_gpu} vs CPU {v_cpu}")
+    worst = 0.0
+    for k, w in g_cpu.items():
+        g = g_gpu[k]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {k} gradient not finite on the card")
+        share = float((g - w).abs().max()) / (float(w.abs().max()) + 1e-6 / SMALL_GRAD_TOL)
+        if share > SMALL_GRAD_TOL:
+            raise AssertionError(f"{label}: {k} gradient apart by {share:.3e} of its "
+                                 f"largest entry (gate {SMALL_GRAD_TOL})")
+        worst = max(worst, share)
+    log(f"{label}: card vs CPU at the small width (f32, TF32 off): loss {v_gpu:.6f} vs "
+        f"{v_cpu:.6f}; {len(g_cpu)} gradient leaves, largest difference {worst:.3e} of "
+        f"the leaf's largest entry (gate {SMALL_GRAD_TOL}) [{card}]")
+    return worst
+
+
+def run_recipe(path, flags, folder, tmp, device, card, counts, after=None,
+               steps=TRAIN_STEPS, tick_steps=None, loop_overrides=None):
+    """The seg2cat recipe with `flags` for `steps` steps at batch 4 through
+    the port's CLI (`main`; with `loop_overrides`, `run_config`'s kwargs
+    with those changes into `training_loop`), every step timed alone, its
+    peak memory and finite stats; `after(trainer, inputs, gen_state, kw,
+    stats)` runs after each step (the generator's state as the step found
+    it).  Returns (run directory, {"ms", "peak"})."""
+    from pix2pix3d_tpu_torch.train import __main__ as cli
+    from pix2pix3d_tpu_torch.train.loop import training_loop
+    from pix2pix3d_tpu_torch.train.trainer import Trainer
+
+    imgs, masks = folder
+    tick = 4 * (tick_steps or steps) / 1e3
+    argv = (["--outdir", os.path.join(tmp, path), "--data", imgs, "--mask_data", masks]
+            + RECIPE_FLAGS + flags
+            + ["--kimg", str(4 * steps / 1e3), "--tick", str(tick), "--snap", "1"])
+    rec = {"ms": [], "peak": []}
+
+    def step_fn(trainer, batch, gen_z, gen_c, generator, **kw):
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        if tf32 != (False, False):
+            raise AssertionError(f"the training loop runs with TF32 {tf32}")
+        gen_state = generator.get_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        stats = Trainer.step(trainer, batch, gen_z, gen_c, generator, **kw)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["peak"].append(torch.cuda.max_memory_allocated())
+        idx = kw["step_idx"]
+        log(f"{path} step {idx}: {rec['ms'][-1]:.1f} ms, peak "
+            f"{rec['peak'][-1] / 2**30:.2f} GiB [{card}]")
+        for k, v in stats.items():
+            if not np.isfinite(v).all():
+                raise AssertionError(f"{path} step {idx}: {k} not finite: {v}")
+        if after is not None:
+            after(trainer, (batch, gen_z, gen_c), gen_state, kw, stats)
+        return stats
+
+    if loop_overrides is None:
+        run_dir = counts.run(path, lambda: cli.main(argv, step_fn=step_fn))
+    else:
+        conf = cli.run_config(cli.parser().parse_args(argv))
+        conf.update(loop_overrides)
+        run_dir = os.path.join(tmp, path, "run")
+        counts.run(path, lambda: training_loop(run_dir=run_dir, step_fn=step_fn, **conf))
+    torch.cuda.empty_cache()
+    for name, by_path in counts.by_path.items():
+        if by_path[path]:
+            raise AssertionError(f"{path} launched {name} {by_path[path]} times")
+    if len(rec["ms"]) != steps:
+        raise AssertionError(f"{path}: {len(rec['ms'])} steps ran, not {steps}")
+    return run_dir, rec
+
+
+def log_steps(path, rec, card, resident=()):
+    """Step 0, steps 1-3 and their median, images/s, peak over the steps
+    but those in `resident` (copies of the trainer resident), phase 16's
+    numbers beside them."""
+    med = statistics.median(rec["ms"][1:4])
+    peak = max(m for i, m in enumerate(rec["peak"][:4]) if i not in resident)
+    base = TRAIN_RESULTS.get("train")
+    vs = ("" if base is None else
+          f" (phase train: step 0 {base['ms'][0]:.1f} ms, median {base['median']:.1f} "
+          f"ms, peak {max(base['peak'][i] for i in (0, 1, 3)) / 2**30:.2f} GiB)")
+    log(f"{path}: step 0 (every phase) {rec['ms'][0]:.1f} ms; steps 1-3 "
+        + ", ".join(f"{m:.1f}" for m in rec["ms"][1:4]) + f" ms, median {med:.1f} ms; "
+        f"{4 / med * 1e3:.2f} images/s at batch 4 (none profiled); peak "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB{vs} [{card}]")
+    return med
+
+
+def profiled_phases(path, trainer, inputs, gen_state, kw, card, every_phase=True):
+    """One extra step on a copy of the trainer, with every phase (step_idx
+    16) or without the reg phases (step_idx 5), under the profiler with
+    host and device activity, after one unprofiled warm-up step of the copy
+    (its first step allocates): each phase's device span and the step's
+    idle share (host tracing included in the wall time)."""
+    import copy
+    from pix2pix3d_tpu_torch.models.triplane import STAGES
+    names, idx = (PHASES, 16) if every_phase else (PHASES_NO_REG, 5)
+    twin = copy.deepcopy(trainer)
+    twin.step(*inputs, cuda_generator(gen_state), **dict(kw, step_idx=idx))
+    wall, busy, spans, top = profile_step(
+        lambda: twin.step(*inputs, cuda_generator(gen_state), **dict(kw, step_idx=idx)),
+        [f"phase_{n}" for n in names] + list(STAGES), True)
+    del twin
+    torch.cuda.empty_cache()
+    missing = [n for n in names if f"phase_{n}" not in spans]
+    if missing:
+        raise AssertionError(f"{path}: no device span for phases {missing}")
+    log(f"{path}: a step with {'every phase' if every_phase else 'no reg phases'} "
+        f"under the profiler (host and device activity): wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}; device span per phase (ms): "
+        + ", ".join(f"{n} {spans[f'phase_{n}']:.1f}" for n in names) + f" [{card}]")
+    for key, ms, count in top[:5]:
+        log(f"  {ms:8.3f} ms {count:5d}x  {key[:90]}")
+
+
+def phase_train_aug(device, card, counts, folder, tmp):
+    """Phase 17: ADA.  The pipe at p=0 is the identity on the card; the
+    pipe and one R1 phase, card against CPU at the small width on the same
+    draws; the recipe with `--aug fixed --p 0.2` through the CLI for 4 steps
+    (a snapshot each tick: phase sinks reads its files) with one profiled
+    extra step; then `--aug ada` for 8 steps in ticks of 4, whose logged
+    augment_p must be `ada_update_p` folded over the logged signs."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.train.augment import AugmentPipe, ada_update_p
+    from pix2pix3d_tpu_torch.train.loss import blur_size_bucket
+
+    aug_kw = dict(xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1, xfrac=1,
+                  brightness=1, contrast=1, lumaflip=1, hue=1, saturation=1)
+    pipe = AugmentPipe(**aug_kw)
+    x = torch.rand((4, 512, 512, 6), generator=torch.Generator().manual_seed(2)
+                   ).to(device) * 2 - 1
+    with precision.policy(False):
+        same = torch.equal(pipe(x, 0.0, torch.Generator(device=device).manual_seed(0)), x)
+        moved = (pipe(x, 1.0, torch.Generator(device=device).manual_seed(0)) - x).abs().amax()
+    if not same or not moved > 0:
+        raise AssertionError(f"the pipe at p=0 is not the identity ({same}) or at p=1 "
+                             f"changes nothing ({float(moved)})")
+    log(f"train-aug: the pipe (train.py's set) at p=0 returns its [4, 512, 512, 6] "
+        f"input bit for bit on the card; at p=1 it moves entries by up to "
+        f"{float(moved):.3f}")
+    blur = (10.0, blur_size_bucket(10.0))
+    card_vs_cpu("train-aug R1 through the pipe (p=1)", device, card,
+                lambda dev: small_loss(dev, aug=aug_kw), lambda L: L.D,
+                lambda L, b, z, c, g: L.d_r1(b, g, blur, TINY_NRR, aug_p=1.0))
+
+    def after(trainer, inputs, gen_state, kw, stats):
+        if kw["step_idx"] == TRAIN_STEPS - 1:
+            profiled_phases("train-aug", trainer, inputs, gen_state, kw, card)
+
+    run_dir, rec = run_recipe("train-aug", AUG_FLAGS, folder, tmp, device, card,
+                              counts, after=after)
+    TRAIN_RESULTS["train-aug"] = dict(rec, run_dir=run_dir)
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f]
+    if [t["Progress/augment_p"] for t in ticks] != [0.2]:
+        raise AssertionError(f"augment_p logged: {[t['Progress/augment_p'] for t in ticks]}")
+    log_steps("train-aug", rec, card)
+
+    # --aug ada: the heuristic every 4 steps over the tick's signs
+    _, ada = run_recipe("train-ada", ["--aug", "ada", f"--target={ADA_TARGET}"], folder,
+                        tmp, device, card, counts,
+                        steps=ADA_STEPS, tick_steps=4,
+                        loop_overrides=dict(snapshot_ticks=None,
+                                            image_snapshot_ticks=None))
+    with open(os.path.join(tmp, "train-ada", "run", "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f]
+    p, want = 0.0, []
+    for tick in ticks:
+        p = ada_update_p(p, tick["Loss/signs/real"], 4, ada_interval=4, ada_kimg=500,
+                         ada_target=ADA_TARGET)
+        want.append(p)
+    got = [t["Progress/augment_p"] for t in ticks]
+    if len(ticks) != 2 or got != want or not got[-1] > 0:
+        raise AssertionError(f"ADA: augment_p logged {got}, folded {want}")
+    log(f"train-aug ADA: {ADA_STEPS} steps in ticks of 4; Loss/signs/real "
+        + ", ".join(f"{t['Loss/signs/real']:.3f}" for t in ticks)
+        + f" -> augment_p {got} = ada_update_p folded over them (target {ADA_TARGET}); "
+        "steps "
+        + ", ".join(f"{m:.1f}" for m in ada["ms"]) + f" ms [{card}]")
+    phase_done("train-aug", t0)
+
+
+def phase_sinks(card):
+    """Phase 18: the run directory of phase 17's CLI run: a TensorBoard
+    event file whose every record passes its length and data CRC checks
+    (the tick's scalars, the trend and four image grids), and a finite
+    feature-distance trend in quality.jsonl (a skipped trend writes none)."""
+    t0 = time.time()
+    run_dir = TRAIN_RESULTS["train-aug"]["run_dir"]
+    events = [n for n in os.listdir(run_dir) if n.startswith("events.out.tfevents.")]
+    if len(events) != 1:
+        raise AssertionError(f"sinks: event files {events}")
+    path = os.path.join(run_dir, events[0])
+    records = read_tb_records(path)
+    if len(records) != 1 + 1 + 1 + 4:
+        raise AssertionError(f"sinks: {len(records)} TensorBoard records, expected 7 "
+                             "(header, tick scalars, trend, four grids)")
+    quality = os.path.join(run_dir, "quality.jsonl")
+    if not os.path.exists(quality):
+        raise AssertionError("sinks: no quality.jsonl: the fd trend was skipped")
+    with open(quality) as f:
+        lines = [json.loads(line) for line in f]
+    fd = [q["fd_proxy_real_fake"] for q in lines]
+    if len(fd) != 1 or not all(math.isfinite(v) for v in fd):
+        raise AssertionError(f"sinks: fd_proxy_real_fake {fd}")
+    log(f"sinks: {os.path.getsize(path)} B TensorBoard event file, {len(records)} "
+        f"records, every length and data CRC-32C right; quality.jsonl "
+        f"fd_proxy_real_fake {fd[0]:.6g} (random-convolution proxy, 4 fakes vs 4 "
+        f"reals) [{card}]")
+    phase_done("sinks", t0)
+
+
+def phase_train_frustum(device, card, counts, folder, tmp):
+    """Phase 19: `--sampler frustum` (train.py's frustum defaults: 96 slabs
+    in chunks of 8, bf16 slabs).  One G main phase, card against CPU at the
+    small width with f32 slabs; the recipe for 4 steps with one profiled
+    extra step; after step 3 the G main phase's gradients at full width
+    (finite, before the trainer's nan_to_num) and its peak memory with
+    `frustum_remat` on and off."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.train.loss import blur_size_bucket
+    blur = (10.0, blur_size_bucket(10.0))
+    small = dict(sampler="frustum", frustum_depth_steps=8, frustum_chunk=4,
+                 frustum_bf16=False)
+    card_vs_cpu("train-frustum G main (f32 slabs, no cross-view term)", device, card,
+                lambda dev: small_loss(dev, rendering=small, lambda_cross_view=0.0),
+                lambda L: L.G,
+                lambda L, b, z, c, g: L.g_main(b, z, c, g, blur, TINY_NRR), b=1)
+
+    def gmain_peak(trainer, inputs, remat):
+        batch, gen_z, gen_c = inputs
+        rk = trainer.G.rendering_kwargs
+        rk["frustum_remat"] = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            _, grads = phase_grads(trainer.loss, trainer.G, lambda L: L.g_main(
+                batch, gen_z[0], gen_c[0], torch.Generator(device=device).manual_seed(4),
+                0.0, 128))
+            bad = sum(int((~torch.isfinite(g)).sum()) for g in grads.values())
+            return torch.cuda.max_memory_allocated(), base, bad
+        finally:
+            del rk["frustum_remat"]
+
+    def after(trainer, inputs, gen_state, kw, stats):
+        if kw["step_idx"] != TRAIN_STEPS - 1:
+            return
+        peak_on, base, bad = gmain_peak(trainer, inputs, True)
+        if bad:
+            raise AssertionError(f"train-frustum: {bad} non-finite G gradient entries "
+                                 "(bf16 slabs, nrr 128)")
+        torch.cuda.empty_cache()
+        try:
+            peak_off, _, _ = gmain_peak(trainer, inputs, False)
+            off = f"{peak_off / 2**30:.2f} GiB"
+        except torch.OutOfMemoryError as e:
+            off = f"does not fit on the card ({str(e).splitlines()[0][:120]})"
+        torch.cuda.empty_cache()
+        log(f"train-frustum: the G main phase at full width (bf16 slabs, nrr 128, "
+            f"batch 4): every G gradient entry finite; peak max_memory_allocated with "
+            f"frustum_remat on {peak_on / 2**30:.2f} GiB, off {off} (the trainer's "
+            f"state {base / 2**30:.2f} GiB resident) [{card}]")
+        # the reg phases do not render: their spans are phase 17's
+        profiled_phases("train-frustum", trainer, inputs, gen_state, kw, card,
+                        every_phase=False)
+
+    flags = ["--sampler", "frustum"]
+    _, rec = run_recipe("train-frustum", flags, folder, tmp, device, card, counts,
+                        after=after,
+                        loop_overrides=dict(snapshot_ticks=None, image_snapshot_ticks=None))
+    log_steps("train-frustum", rec, card)
+    log("train-frustum: both kernels' launch counts 0 on this path (the frustum "
+        "sampler decodes unfused in training, as in JAX)")
+    phase_done("train-frustum", t0)
+
+
+def phase_train_remat(device, card, counts, folder, tmp):
+    """Phase 20: `--remat True` for 4 steps beside phase 16; before step 2
+    two copies of the trainer, one with remat and one without, each run
+    step 2 from its inputs and generator state under deterministic
+    algorithms: equal bit for bit."""
+    t0 = time.time()
+    import copy
+    held = {}
+
+    def after(trainer, inputs, gen_state, kw, stats):
+        if kw["step_idx"] == 1:
+            # the state step 2 starts from
+            held["remat"] = copy.deepcopy(trainer)
+            held["plain"] = copy.deepcopy(trainer)
+            held["plain"].loss.remat = False
+        if kw["step_idx"] != 2:
+            return
+        twins = (held.pop("remat"), held.pop("plain"))
+        if not (twins[0].loss.remat and trainer.loss.remat):
+            raise AssertionError("the loss does not remat")
+        (s_remat, s_plain), flagged = deterministic_steps(twins, inputs, gen_state, kw)
+        diffs = device_state_diff(*twins, optimizers=True)
+        unequal = [k for k in s_plain if not np.array_equal(s_plain[k], s_remat[k])]
+        if any(diffs.values()) or unequal:
+            raise AssertionError(
+                "remat step 2 differs from the plain one under deterministic "
+                f"algorithms: largest differences {diffs}, stats {unequal}; ops without "
+                f"a deterministic version: {flagged}")
+        del twins
+        torch.cuda.empty_cache()
+        log(f"train-remat: step 2 with remat equals step 2 without it bit for bit "
+            f"(parameters, buffers, Adam moments and counts, stats), both from the "
+            f"same state and generator state under deterministic algorithms; ops "
+            f"flagged as without a deterministic version: {flagged or 'none'} [{card}]")
+
+    _, rec = run_recipe("train-remat", ["--remat", "True"], folder, tmp, device, card,
+                        counts, after=after,
+                        loop_overrides=dict(snapshot_ticks=None, image_snapshot_ticks=None))
+    log_steps("train-remat", rec, card, resident=(2,))
+    phase_done("train-remat", t0)
+
+
+def phase_autograd_guard(device, card, counts):
+    """Phase 21: each kernel wrapper, called on the card with an input that
+    requires grad under grad mode, raises before it launches."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch.ops import decode_composite as dc
+    from pix2pix3d_tpu_torch.ops import late_separate_decode as lsd
+    gen = torch.Generator().manual_seed(6)
+    dc_args = kernel_inputs(dc, torch.float32, False, gen, device)
+    lsd_args = decode_inputs(600, torch.float32, False, 6, device)
+    for name, fn, args in (("decode_composite", dc.fused_decode_composite, dc_args),
+                           ("late_separate_decode", lsd.late_separate_decode,
+                            lsd_args[:5])):
+        leaf = args[0].detach().clone().requires_grad_(True)
+
+        def call():
+            try:
+                fn(leaf, *args[1:])
+            except RuntimeError as e:
+                if "has no backward" not in str(e):
+                    raise
+                return str(e)
+            raise AssertionError(f"{name} ran on an input that requires grad")
+        msg = counts.run("autograd-guard", call)
+        with torch.no_grad():
+            fn(leaf, *args[1:])
+        torch.cuda.synchronize()
+        log(f"autograd guard: {name} on the card refuses an input that requires "
+            f"grad ({msg!r}); under torch.no_grad() it runs")
+    for name, by_path in counts.by_path.items():
+        if by_path["autograd-guard"]:
+            raise AssertionError(f"the refused calls launched {name}")
+    phase_done("autograd guard", t0)
 
 
 def main():
@@ -1716,6 +2252,18 @@ def main():
     # ---- 15.-16. training: card vs CPU at a small width, then the recipe
     phase_train_parity(device, card)
     phase_train(device, card, counts)
+
+    # ---- 17.-21. ADA, sinks, the frustum sampler, remat, the autograd guard
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        folder = write_training_folder(tmp, TRAIN_IMAGES)
+        log(f"train-aug: {TRAIN_IMAGES} synthetic 512^2 images and masks written in "
+            f"{time.perf_counter() - t1:.2f} s")
+        phase_train_aug(device, card, counts, folder, tmp)
+        phase_sinks(card)
+        phase_train_frustum(device, card, counts, folder, tmp)
+        phase_train_remat(device, card, counts, folder, tmp)
+    phase_autograd_guard(device, card, counts)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -76,6 +78,20 @@ def build(*names, log=None):
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets
+
+
+def refuse_autograd(name, *tensors):
+    """Raise if grad mode is on and any of `tensors` requires grad: a kernel
+    launched through `ctypes` writes outputs that autograd cannot see, so it
+    would give no gradient without an error.  The JAX package's
+    `pallas_call`s have no VJP either.  Checked on every device, so that the
+    CPU (the plain version, which could differentiate) refuses what the card
+    would."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            "inputs that do not require grad")
 
 
 def load(name, symbol, argtypes):

@@ -17,7 +17,9 @@ W2ᵀ[32:65, 64:128] (semantic features and sigma).
 
 `fused_decode_composite` launches the kernel for CUDA tensors and runs
 `decode_composite_plain` for CPU tensors; there is no other fallback.  Each
-launch adds one to `fused_decode_composite.launches`.
+launch adds one to `fused_decode_composite.launches`.  It has no backward
+(nor has the TPU kernel): with grad mode on, an input that requires grad
+raises on every device (`cuda_build.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -151,6 +153,8 @@ class _FusedDecodeComposite:
                  sem_sigmoid=False, carry_f32=False):
         """See the module docstring.  The compute type is feats' dtype
         (float32 or bfloat16); the weights are cast to it."""
+        cuda_build.refuse_autograd("fused_decode_composite", feats, t_vals, dnorm,
+                                   w1t, b1, w2t, b2)
         if feats.ndim != 5:
             raise ValueError(f"feats must be [CH, N, TC, 32, R], got "
                              f"{tuple(feats.shape)}")

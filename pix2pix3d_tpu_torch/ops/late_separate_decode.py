@@ -17,7 +17,9 @@ type, sigma returned as f32.
 
 `late_separate_decode` launches the kernel for CUDA tensors and runs
 `late_separate_decode_plain` for CPU tensors; there is no other fallback.
-Each launch adds one to `late_separate_decode.launches`.
+Each launch adds one to `late_separate_decode.launches`.  It has no
+backward (nor has the TPU kernel): with grad mode on, an input that
+requires grad raises on every device (`cuda_build.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ class _LateSeparateDecode:
                  sem_sigmoid=False, compute_dtype=torch.bfloat16):
         """See the module docstring.  feats is cast to `compute_dtype`
         (float32 or bfloat16), and so are the weights."""
+        cuda_build.refuse_autograd("late_separate_decode", feats, w1, b1, w2, b2)
         if feats.ndim != 2 or feats.shape[1] != 32:
             raise ValueError(f"feats must be [M, 32], got {tuple(feats.shape)}")
         if compute_dtype not in _DTYPES:

@@ -14,7 +14,8 @@ Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
 
 Layouts follow the JAX package: planes `[N, 3, S, S, C]` feature-last,
 textures `[S, S, C]`.  The window specs and the NaN-poison coverage guard
-stay as the JAX package has them.  Per-output-tile sub-windows
+stay as the JAX package has them, and so does the per-chunk
+rematerialization of training (`frustum_remat`).  Per-output-tile sub-windows
 (`rendering_kwargs['frustum_tiles']`, opt-in there) are not ported; the
 generator refuses the key.
 """
@@ -25,6 +26,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import decode_composite
 from ..ops.bias_act import softplus
@@ -385,15 +387,36 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
         depths = t_chunk[:, :, None] * dnorm[:, None, :]      # [N, tc, R]
         return colors, sigmas, depths
 
-    colors0, sigmas0, depths0 = decode_chunk(t_vals[:, :chunk])
-    carry = (colors0[:, 0], sigmas0[:, 0], depths0[:, 0],
-             torch.ones((n, r), device=dev),
-             torch.zeros((n, r, colors0.shape[-1]), device=dev),
-             torch.zeros((n, r), device=dev), torch.zeros((n, r), device=dev))
-    carry = composite_step(carry, colors0[:, 1:], sigmas0[:, 1:], depths0[:, 1:])
+    def first_chunk(t_chunk):
+        """The first chunk seeds the carry with its own first sample and
+        composites the rest."""
+        colors0, sigmas0, depths0 = decode_chunk(t_chunk)
+        carry = (colors0[:, 0], sigmas0[:, 0], depths0[:, 0],
+                 torch.ones((n, r), device=dev),
+                 torch.zeros((n, r, colors0.shape[-1]), device=dev),
+                 torch.zeros((n, r), device=dev), torch.zeros((n, r), device=dev))
+        return composite_step(carry, colors0[:, 1:], sigmas0[:, 1:], depths0[:, 1:])
+
+    def next_chunk(carry, t_chunk):
+        return composite_step(carry, *decode_chunk(t_chunk))
+
+    # Per-chunk rematerialization (JAX `frustum.py:635-672`): with
+    # gradients, each chunk's decode+composite is recomputed in the backward
+    # pass, so only the carry survives a chunk, not its slab features,
+    # decoder activations and colors (O(T * nrr^2 * 64) at nrr 128).  The
+    # recompute repeats the chunk's window-start syncs.  Without gradients
+    # (serving) nothing changes.  Off with rendering_kwargs['frustum_remat']
+    # = False.
+    rematerialize = opts.get("frustum_remat", True) and torch.is_grad_enabled()
+
+    def remat(fn, *args):
+        if rematerialize:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    carry = remat(first_chunk, t_vals[:, :chunk])
     for k in range(1, T // chunk):
-        carry = composite_step(carry, *decode_chunk(
-            t_vals[:, k * chunk:(k + 1) * chunk]))
+        carry = remat(next_chunk, carry, t_vals[:, k * chunk:(k + 1) * chunk])
     _, _, _, _, acc_rgb, acc_d, acc_w = carry
     return _finalize(acc_rgb, acc_d, acc_w, t_vals, dnorm, opts)
 

@@ -10,12 +10,14 @@ flag (ref `train.py:181-534`), e.g. the seg2cat recipe
         --lambda_cross_view=1e-4 --only_raw_recons=True
 
 It trains on one card (`--device cuda`, the default; raises without one) or
-on the CPU with `--device cpu`.  `--jit_phases` is accepted and has no
-effect: the port runs the phases eagerly, one after another, which is the
-JAX package's per-phase mode's math (`train/loop.py:73-81` there).  Flags of
-parts not ported yet raise `NotImplementedError` naming their ROADMAP item:
-`--aug` other than noaug, `--sampler frustum`, `--remat True` and
-`--num-nodes` above 1.
+on the CPU with `--device cpu`, with every flag of `train.py`: `--aug
+ada|fixed` (ADA), `--sampler frustum` (with `--frustum_depth_steps`,
+`--frustum_chunk`, `--frustum_bf16`), `--remat True`, and the TensorBoard
+event file (always) and wandb (with `PIX2PIX3D_WANDB`).  `--jit_phases` is
+accepted and has no effect: the port runs the phases eagerly, one after
+another, which is the JAX package's per-phase mode's math
+(`train/loop.py:73-81` there).  `--num-nodes` above 1 (multi-card training)
+raises `NotImplementedError` naming its ROADMAP item.
 """
 
 import argparse
@@ -25,7 +27,9 @@ import re
 
 from .. import config as cfg_mod
 from .dataset import build_dataset
-from .loss import TRAINING_ITEM
+
+# the ROADMAP item of multi-card training, not ported yet
+TRAINING_ITEM = "ROADMAP.md Queue 1 item 5"
 
 
 def parse_bool(v):
@@ -118,13 +122,9 @@ def parser():
 
 def check_deferred(args):
     """Refuse the flags of parts of the JAX trainer not ported yet."""
-    deferred = [(args.aug != "noaug", f"--aug {args.aug} (ADA)"),
-                (args.sampler == "frustum", "--sampler frustum training"),
-                (args.remat, "--remat True"),
-                (args.num_nodes > 1, "--num-nodes > 1 (multi-card training)")]
-    for on, what in deferred:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: {TRAINING_ITEM}")
+    if args.num_nodes > 1:
+        raise NotImplementedError("--num-nodes > 1 (multi-card training) is not "
+                                  f"ported yet: {TRAINING_ITEM}")
 
 
 def run_config(args):
@@ -148,6 +148,11 @@ def run_config(args):
         decoder_lr_mul=args.decoder_lr_mul)
     if args.point_chunk:
         g_config["rendering_kwargs"]["point_chunk"] = args.point_chunk
+    if args.sampler == "frustum":
+        g_config["rendering_kwargs"]["sampler"] = "frustum"
+        g_config["rendering_kwargs"]["frustum_depth_steps"] = args.frustum_depth_steps
+        g_config["rendering_kwargs"]["frustum_chunk"] = args.frustum_chunk
+        g_config["rendering_kwargs"]["frustum_bf16"] = args.frustum_bf16
 
     blur_init = 10 if (args.resume is None or args.resume_blur) else 0
     gpc_fade = (args.gpc_reg_fade_kimg if (args.resume is None or args.resume_blur)
@@ -171,6 +176,7 @@ def run_config(args):
         only_raw_recons=args.only_raw_recons,
         silhouette_loss=args.silhouette_loss,
         lambda_cross_view=args.lambda_cross_view,
+        remat=args.remat,
     )
     d_kwargs = dict(channel_base=args.cbase, channel_max=args.cmax,
                     num_fp16_res=args.d_num_fp16_res,
@@ -187,6 +193,11 @@ def run_config(args):
         g_lr=args.glr if args.glr is not None else 0.0025,
         d_lr=args.dlr,
         g_reg_interval=args.density_reg_every if args.density_reg > 0 else None,
+        augment_kwargs=(None if args.aug == "noaug" else dict(
+            xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1, xfrac=1,
+            brightness=1, contrast=1, lumaflip=1, hue=1, saturation=1)),
+        augment_p=(args.p if args.aug == "fixed" else 0.0),
+        ada_target=(args.target if args.aug == "ada" else None),
         batch_size=args.batch, batch_gpu=args.batch_gpu,
         total_kimg=args.kimg, kimg_per_tick=args.tick,
         snapshot_ticks=args.snap, image_snapshot_ticks=args.snap,

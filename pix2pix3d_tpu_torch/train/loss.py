@@ -20,6 +20,17 @@ generator's noise and renderer jitter, the density-regularization points,
 directions and perturbations (`draw_uniform`/`draw_normal`), and
 `disc_c_noise` (`nn.discriminator.draw_normal`).  The frameworks draw
 different numbers from a seed; the tests hand JAX's draws to these hooks.
+With an `augment_pipe`, a phase that takes `aug_p` first draws one seed
+(`draw_seed`, JAX's `fold_in(rng, 77)`), and each of its pipe calls draws
+from a generator seeded with it: the fake and the real batch of a phase
+get the same transforms, as JAX's calls on one key do.
+
+`remat=True` recomputes `run_G`'s forward in the backward pass
+(`torch.utils.checkpoint`, JAX's `jax.checkpoint(run_G)`).  The recompute
+draws from a copy of the generator as it stood before the forward
+(`_replay_generator`), so it draws the forward's numbers again: the
+checkpoint's own `preserve_rng_state` restores only PyTorch's global
+generators, not the explicit one.
 
 Loss inventory (ref lines in parens): GAN softplus G/D on the dual
 discriminator (:566, :843, :866); semantic GAN via D_semantic with rgb
@@ -40,14 +51,13 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.discriminator import filtered_resizing
 from ..ops.bias_act import softplus
+from ..ops.resize import resize_bilinear
 from ..ops.upfirdn2d import filter2d, setup_filter
 from .stats import StatsAccumulator
-
-# the ROADMAP item of the trainer's parts not ported yet
-TRAINING_ITEM = "ROADMAP.md Queue 1 item 5"
 
 
 def draw_uniform(generator, shape, device):
@@ -60,6 +70,21 @@ def draw_normal(generator, shape, device):
     """N(0, 1) draws from `generator` (on its own device), on `device`."""
     return torch.randn(shape, generator=generator,
                        device=generator.device).to(device)
+
+
+def draw_seed(generator):
+    """A 63-bit seed drawn from `generator` (a host sync when it lives on
+    the card): the phase's augmentation draws."""
+    return int(torch.randint(2**62, (), generator=generator,
+                             device=generator.device))
+
+
+def _replay_generator(generator, state):
+    """A generator on `generator`'s device in `state` (`get_state()`'s):
+    what `run_G`'s recompute under remat draws from."""
+    replay = torch.Generator(device=generator.device)
+    replay.set_state(state)
+    return replay
 
 
 def _nchw(x):
@@ -125,15 +150,12 @@ class Pix2Pix3DLoss:
                  only_raw_recons=False, silhouette_loss=False,
                  lambda_cross_view=0.0, style_mixing_prob=0.0,
                  raw_fade_kimg=None, remat=False):
-        if augment_pipe is not None:
-            raise NotImplementedError(
-                f"augment_pipe (ADA) is not ported yet: {TRAINING_ITEM}")
-        if remat:
-            raise NotImplementedError(f"remat is not ported yet: {TRAINING_ITEM}")
         self.G = G
         self.D = D
         self.D_semantic = D_semantic
         self.lpips = lpips
+        self.augment_pipe = augment_pipe
+        self.remat = remat
         self.r1_gamma = r1_gamma
         self.blur_init_sigma = blur_init_sigma
         self.blur_fade_kimg = blur_fade_kimg
@@ -200,23 +222,61 @@ class Pix2Pix3DLoss:
         f = torch.exp2(-(taps / torch.tensor(float(sigma), dtype=torch.float32)).square())
         return filter2d(image, f / f.sum())
 
-    def run_G(self, z, batch, c_render, nrr, generator):
+    def _run_G(self, z, batch, c_render, nrr, generator):
         ws = self.G.mapping(z, batch["pose"], batch)
         out = self.G.synthesis(ws, c_render, neural_rendering_resolution=nrr,
                                generator=generator, noise_mode="random")
         return out, ws
 
-    def _run(self, net, img, c, blur_sigma, generator, raw_fade):
-        """NHWC image dict -> NCHW, blur the image, apply `net`."""
-        pair = {"image": self._blur(_nchw(img["image"]), blur_sigma),
-                "image_raw": _nchw(img["image_raw"])}
-        return net(pair, c, generator=generator, raw_fade=raw_fade)
+    def run_G(self, z, batch, c_render, nrr, generator):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._run_G(z, batch, c_render, nrr, generator)
+        state = generator.get_state()
+        runs = []
 
-    def run_D(self, img, c, blur_sigma, generator=None, raw_fade=None):
-        return self._run(self.D, img, c, blur_sigma, generator, raw_fade)
+        def run(z, batch, c_render):
+            g = _replay_generator(generator, state) if runs else generator
+            runs.append(g)
+            return self._run_G(z, batch, c_render, nrr, g)
+        return checkpoint(run, z, batch, c_render, use_reentrant=False)
 
-    def run_D_semantic(self, img, c, blur_sigma, generator=None, raw_fade=None):
-        return self._run(self.D_semantic, img, c, blur_sigma, generator, raw_fade)
+    def phase_aug(self, generator, aug_p):
+        """The phase's augmentation (JAX's `fold_in(rng, 77)`): None without
+        a pipe or `aug_p`, else (a maker of the phase's pipe generator,
+        aug_p)."""
+        if self.augment_pipe is None or aug_p is None:
+            return None
+        seed = draw_seed(generator)
+        device = generator.device
+        return (lambda: torch.Generator(device=device).manual_seed(seed)), aug_p
+
+    def _augment_pair(self, image, image_raw, make_generator, aug_p):
+        """ADA on [image | raw upsampled to the image's size] together, the
+        raw resized back (JAX `loss.py:201-210`); NCHW in and out."""
+        c = image.shape[1]
+        raw_res = image_raw.shape[2]
+        up_raw = resize_bilinear(image_raw, image.shape[2], antialias=True)
+        pair = _nhwc(torch.cat([image, up_raw], dim=1))
+        pair = _nchw(self.augment_pipe(pair, aug_p, make_generator()))
+        return pair[:, :c], resize_bilinear(pair[:, c:], raw_res, antialias=True)
+
+    def _run(self, net, img, c, blur_sigma, generator, raw_fade, aug):
+        """NHWC image dict -> NCHW, blur the image, augment the pair (if
+        `aug`), apply `net`."""
+        image = self._blur(_nchw(img["image"]), blur_sigma)
+        image_raw = _nchw(img["image_raw"])
+        if aug is not None:
+            image, image_raw = self._augment_pair(image, image_raw, *aug)
+        return net({"image": image, "image_raw": image_raw}, c,
+                   generator=generator, raw_fade=raw_fade)
+
+    def run_D(self, img, c, blur_sigma, generator=None, aug=None, raw_fade=None):
+        return self._run(self.D, img, c, blur_sigma, generator, raw_fade, aug)
+
+    def run_D_semantic(self, img, c, blur_sigma, generator=None, aug=None,
+                       raw_fade=None):
+        return self._run(self.D_semantic, img, c, blur_sigma, generator, raw_fade,
+                         aug)
 
     def _resize(self, x_nhwc, size):
         return _nhwc(filtered_resizing(_nchw(x_nhwc), size, f=self.resample_filter,
@@ -274,15 +334,17 @@ class Pix2Pix3DLoss:
                 "recon_sem_raw": gi_rec["semantic_raw"].contiguous()}
 
     def g_main(self, batch, gen_z, gen_c, generator, blur_sigma, nrr,
-               raw_fade=None, cv_aux=None):
+               aug_p=None, raw_fade=None, cv_aux=None):
         stats = StatsAccumulator()
         pose = batch["pose"]
+        aug = self.phase_aug(generator, aug_p)
         coin = self._mode_coin(generator, pose.device)
         c_render = torch.where(coin > 0, gen_c, pose)
         recon_on = 1.0 - coin  # recon losses only in image-pose mode (ref :595)
 
         gen_img, _ws = self.run_G(gen_z, batch, c_render, nrr, generator)
-        gen_logits = self.run_D(gen_img, c_render, blur_sigma, generator, raw_fade)
+        gen_logits = self.run_D(gen_img, c_render, blur_sigma, generator, aug,
+                                raw_fade)
         stats.report("Loss/scores/fake", gen_logits)
         stats.report("Loss/signs/fake", torch.sign(gen_logits))
         loss = softplus(-gen_logits).mean()
@@ -290,7 +352,7 @@ class Pix2Pix3DLoss:
         if self.D_semantic is not None:
             input_img = self._semantic_concat(gen_img, detach_rgb=True)
             logits_sem = self.run_D_semantic(input_img, c_render, blur_sigma,
-                                             raw_fade=raw_fade)
+                                             aug=aug, raw_fade=raw_fade)
             stats.report("Loss/scores/fake_semantic", logits_sem)
             loss = loss + softplus(-logits_sem).mean() * self.lambda_D_semantic
 
@@ -386,20 +448,22 @@ class Pix2Pix3DLoss:
         return loss, {}
 
     def d_main(self, batch, gen_z, gen_c, generator, blur_sigma, nrr,
-               raw_fade=None):
+               aug_p=None, raw_fade=None):
         stats = StatsAccumulator()
         pose = batch["pose"]
+        aug = self.phase_aug(generator, aug_p)
         coin = self._mode_coin(generator, pose.device)
         c_render = torch.where(coin > 0, gen_c, pose)
         with torch.no_grad():
             gen_img, ws = self.run_G(gen_z, batch, c_render, nrr, generator)
-        gen_logits = self.run_D(gen_img, c_render, blur_sigma, generator, raw_fade)
+        gen_logits = self.run_D(gen_img, c_render, blur_sigma, generator, aug,
+                                raw_fade)
         stats.report("Loss/scores/fake", gen_logits)
         stats.report("Loss/signs/fake", torch.sign(gen_logits))
         loss_dgen = softplus(gen_logits).mean()
 
         real = self._real_pair(batch, nrr, blur_sigma)
-        real_logits = self.run_D(real, pose, blur_sigma, generator, raw_fade)
+        real_logits = self.run_D(real, pose, blur_sigma, generator, aug, raw_fade)
         stats.report("Loss/scores/real", real_logits)
         stats.report("Loss/signs/real", torch.sign(real_logits))
         loss_dreal = softplus(-real_logits).mean()
@@ -419,35 +483,38 @@ class Pix2Pix3DLoss:
             penalty = penalty + g_raw.square().sum(dim=(1, 2, 3))
         return penalty
 
-    def d_r1(self, batch, generator, blur_sigma, nrr, raw_fade=None):
-        """R1 on the real image and raw (ref :871-888)."""
+    def d_r1(self, batch, generator, blur_sigma, nrr, aug_p=None, raw_fade=None):
+        """R1 on the real image and raw (ref :871-888), through the pipe
+        when augmenting."""
         stats = StatsAccumulator()
+        aug = self.phase_aug(generator, aug_p)
         real = self._real_pair(batch, nrr, blur_sigma)
         penalty = self._r1_penalty(
             lambda img: self.run_D(img, batch["pose"], blur_sigma, generator,
-                                   raw_fade), real)
+                                   aug, raw_fade), real)
         loss = penalty.mean() * (self.r1_gamma / 2)
         stats.report("Loss/r1_penalty", penalty)
         stats.report("Loss/D/reg", loss)
         return loss, stats.asdict()
 
     def d_semantic_main(self, batch, gen_z, gen_c, generator, blur_sigma, nrr,
-                        raw_fade=None):
+                        aug_p=None, raw_fade=None):
         stats = StatsAccumulator()
         pose = batch["pose"]
+        aug = self.phase_aug(generator, aug_p)
         coin = self._mode_coin(generator, pose.device)
         c_render = torch.where(coin > 0, gen_c, pose)
         with torch.no_grad():
             gen_img, _ = self.run_G(gen_z, batch, c_render, nrr, generator)
         input_img = self._semantic_concat(gen_img, detach_rgb=False)
         logits = self.run_D_semantic(input_img, c_render, blur_sigma,
-                                     raw_fade=raw_fade)
+                                     aug=aug, raw_fade=raw_fade)
         stats.report("Loss/scores/fake_semantic", logits)
         loss_gen = softplus(logits).mean()
 
         real_cat = self._real_semantic_pair(batch, nrr, blur_sigma)
         real_logits = self.run_D_semantic(real_cat, pose, blur_sigma,
-                                          raw_fade=raw_fade)
+                                          aug=aug, raw_fade=raw_fade)
         stats.report("Loss/scores/real_semantic", real_logits)
         loss_real = softplus(-real_logits).mean()
         stats.report("Loss/D/loss_semantic", loss_gen + loss_real)
@@ -463,12 +530,14 @@ class Pix2Pix3DLoss:
         return {"image": torch.cat([real["image"], mask], dim=-1),
                 "image_raw": torch.cat([real["image_raw"], mask_raw], dim=-1)}
 
-    def d_semantic_r1(self, batch, generator, blur_sigma, nrr, raw_fade=None):
+    def d_semantic_r1(self, batch, generator, blur_sigma, nrr, aug_p=None,
+                      raw_fade=None):
         stats = StatsAccumulator()
+        aug = self.phase_aug(generator, aug_p)
         real_cat = self._real_semantic_pair(batch, nrr, blur_sigma)
         penalty = self._r1_penalty(
             lambda img: self.run_D_semantic(img, batch["pose"], blur_sigma,
-                                            raw_fade=raw_fade), real_cat)
+                                            aug=aug, raw_fade=raw_fade), real_cat)
         loss = penalty.mean() * self.r1_gamma * 0.5
         stats.report("Loss/r1_penalty_semantic", penalty)
         stats.report("Loss/D/reg_semantic", loss)

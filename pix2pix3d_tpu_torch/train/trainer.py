@@ -181,14 +181,16 @@ class Trainer:
         return {k: v[r * n:(r + 1) * n] for k, v in tree.items()}
 
     def step(self, batch, gen_z, gen_c, generator, *, step_idx, cur_nimg,
-             batch_size, ema_kimg=10, ema_rampup=0.05):
+             batch_size, ema_kimg=10, ema_rampup=0.05, aug_p=0.0):
         """One training iteration; returns {stat name: [count, sum, sumsq]}
         (numpy, one transfer from the card).
 
         batch: {image [B, H, W, 3], mask [B, H, W, 1], pose [B, 25]} on the
         networks' device; gen_z/gen_c: `[4, B, ...]` per-phase latents and
         poses (Gmain, Greg, Dmain, Dsmain); `generator`: the
-        `torch.Generator` of every random draw of the step."""
+        `torch.Generator` of every random draw of the step; `aug_p`: the
+        augmentation probability of Gmain and every D phase (used only with
+        the loss's `augment_pipe`)."""
         loss = self.loss
         rounds = self.grad_accum_rounds
         nb = batch["pose"].shape[0]
@@ -225,7 +227,7 @@ class Trainer:
                 b, p = mb(batch, r), mb(phase_in[0], r)
                 kw = {} if cv_aux is None else {"cv_aux": mb(cv_aux, r)}
                 return loss.g_main(b, p["z"], p["c"], generator, blur, nrr,
-                                   raw_fade=raw_fade, **kw)
+                                   aug_p=aug_p, raw_fade=raw_fade, **kw)
             add(self._phase_update(gmain, self.G, self.opt_g, 1.0))
 
         if do_greg:
@@ -239,7 +241,7 @@ class Trainer:
             def dmain(r):
                 b, p = mb(batch, r), mb(phase_in[2], r)
                 value, (s, aux) = loss.d_main(b, p["z"], p["c"], generator, blur,
-                                              nrr, raw_fade=raw_fade)
+                                              nrr, aug_p=aug_p, raw_fade=raw_fade)
                 return value, dict(s, _ws_mean=aux["ws"].mean(dim=0) / rounds)
             s = self._phase_update(dmain, self.D, self.opt_d, 1.0)
             update_w_avg(self.G, s.pop("_ws_mean"))
@@ -249,7 +251,7 @@ class Trainer:
             with record_function("phase_dreg"):
                 def dreg(r):
                     return loss.d_r1(mb(batch, r), generator, blur, nrr,
-                                     raw_fade=raw_fade)
+                                     aug_p=aug_p, raw_fade=raw_fade)
                 add(self._phase_update(dreg, self.D, self.opt_d,
                                        float(self.d_reg_interval)))
 
@@ -258,13 +260,13 @@ class Trainer:
                 def dsmain(r):
                     b, p = mb(batch, r), mb(phase_in[3], r)
                     return loss.d_semantic_main(b, p["z"], p["c"], generator, blur,
-                                                nrr, raw_fade=raw_fade)
+                                                nrr, aug_p=aug_p, raw_fade=raw_fade)
                 add(self._phase_update(dsmain, self.D_semantic, self.opt_dsem, 1.0))
             if do_dreg and loss.r1_gamma > 0:
                 with record_function("phase_dsreg"):
                     def dsreg(r):
                         return loss.d_semantic_r1(mb(batch, r), generator, blur, nrr,
-                                                  raw_fade=raw_fade)
+                                                  aug_p=aug_p, raw_fade=raw_fade)
                     add(self._phase_update(dsreg, self.D_semantic, self.opt_dsem,
                                            float(self.d_reg_interval)))
 

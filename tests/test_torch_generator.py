@@ -157,13 +157,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_import_rules_cover_the_trainer():
-    """The trainer's modules and its CLI are among the sources the two
-    import checks read."""
+    """The trainer's modules, its CLI and the metrics it uses are among the
+    sources the two import checks read."""
     sources = set(_port_sources())
     for name in ("trainer", "loss", "loop", "dataset", "native_loader", "lpips",
-                 "stats", "ema", "checkpoint", "viz", "__main__"):
+                 "stats", "ema", "checkpoint", "viz", "__main__", "augment", "tb",
+                 "wandb_sink"):
         assert PORT / "train" / f"{name}.py" in sources, name
     assert PORT / "utils" / "png.py" in sources
+    for name in ("metric_utils", "frechet_inception_distance"):
+        assert PORT / "metrics" / f"{name}.py" in sources, name
 
 
 def test_port_imports_pil_only_inside_functions():

@@ -3,8 +3,9 @@ package's and Pillow: the PNG encoder (read back by Pillow), the native
 decoder (built from `native/png_reader.cpp` into the port's `_build/`) on
 Pillow's PNGs, the seg and edge datasets (directory and zip), the sampler
 and the `DataLoader` batches, item for item against the JAX package's on
-one synthetic folder; and the training CLI's refusal of the flags of parts
-not ported yet.  Exact equality throughout: the pipeline moves uint8
+one synthetic folder; the training CLI's dry-run config against
+`train.py`'s, and its refusal of `--num-nodes` above 1 (not ported yet).
+Exact equality throughout: the pipeline moves uint8
 pixels and float32 poses, and normalizes them with the same arithmetic.
 """
 
@@ -140,10 +141,6 @@ def test_loader_raises_the_workers_failure(folder, tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--aug", "ada"], "--aug ada"),
-    (["--aug", "fixed"], "--aug fixed"),
-    (["--sampler", "frustum"], "--sampler frustum"),
-    (["--remat", "True"], "--remat"),
     (["--num-nodes", "2"], "--num-nodes"),
 ])
 def test_cli_refuses_the_deferred_flags(folder, tmp_path, flags, what):
@@ -153,6 +150,39 @@ def test_cli_refuses_the_deferred_flags(folder, tmp_path, flags, what):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5") as e:
         tcli.main(argv)
     assert what in str(e.value)
+    assert not list(tmp_path.iterdir())
+
+
+def _printed_config(out):
+    """The run config a dry run prints (one JSON object of strings)."""
+    return json.loads(out[out.index("{"):out.rindex("}") + 1])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--aug", "ada"], ["--aug", "ada", "--target", "0.7"],
+    ["--aug", "fixed"], ["--aug", "fixed", "--p", "0.35"],
+    ["--sampler", "frustum"],
+    ["--sampler", "frustum", "--frustum_depth_steps", "48", "--frustum_chunk",
+     "4", "--frustum_bf16", "False"],
+    ["--remat", "True"],
+], ids=lambda f: " ".join(f))
+def test_cli_dry_run_matches_train_py_for_each_flag(folder, tmp_path, monkeypatch,
+                                                    capsys, flags):
+    """`train.py -n` and the port's CLI with `-n` print the same run config
+    (the port's adds the device) for each flag the port once refused."""
+    import sys
+
+    import train as jtrain
+    argv = ["--outdir", str(tmp_path), "--cfg", "afhq", "--data", folder["imgs"],
+            "--mask_data", folder["masks"], "--batch", "4", "--gamma", "5",
+            "--semantic_channels", "6", "--dis_mask", "True", "-n"] + flags
+    monkeypatch.setattr(sys, "argv", ["train.py"] + argv)
+    jtrain.main()
+    want = _printed_config(capsys.readouterr().out)
+    tcli.main(argv)
+    got = _printed_config(capsys.readouterr().out)
+    assert got.pop("device") == "cuda"
+    assert got == want
     assert not list(tmp_path.iterdir())
 
 
@@ -176,7 +206,7 @@ def test_cli_dry_run_config_matches_train_py(folder, tmp_path):
         gpc_reg_fade_kimg=1000, dual_discrimination=True, random_c_prob=0.5,
         lambda_l1=0.0, lambda_lpips=1.0, lambda_D_semantic=0.1, seg_weight=0.0,
         edge_weight=2.0, only_raw_recons=True, silhouette_loss=False,
-        lambda_cross_view=1e-4)
+        lambda_cross_view=1e-4, remat=False)
     assert cfg["d_kwargs"] == dict(channel_base=32768, channel_max=512,
                                    num_fp16_res=4, conv_clamp=256, disc_c_noise=0.0,
                                    epilogue_kwargs=dict(mbstd_group_size=4))

@@ -16,7 +16,8 @@ The two frameworks draw different numbers, so each JAX phase runs jitted
 with `jax.random.normal`/`uniform` recorded (`record_draws`), and the port
 consumes those draws, in order, through its draw hooks (`shared_draws`):
 `nn.synthesis.draw_noise`, `render.renderer._uniform`,
-`train.loss.draw_uniform`/`draw_normal` and `nn.discriminator.draw_normal`.
+`train.loss.draw_uniform`/`draw_normal`, `nn.discriminator.draw_normal` and
+`train.augment.draw_uniform`/`draw_normal`/`draw_randint`.
 Each JAX phase is jitted once per module (`jax_phases`), with every array
 an argument, and shared by the cases.
 
@@ -53,6 +54,7 @@ from pix2pix3d_tpu_torch.models.triplane import init_parameters
 from pix2pix3d_tpu_torch.nn import discriminator as tdisc
 from pix2pix3d_tpu_torch.nn import synthesis as tsyn
 from pix2pix3d_tpu_torch.render import renderer as trenderer
+from pix2pix3d_tpu_torch.train import augment as taug
 from pix2pix3d_tpu_torch.train import loss as tloss
 from pix2pix3d_tpu_torch.train.lpips import LPIPS as TLPIPS
 from pix2pix3d_tpu_torch.train.trainer import _set_trainable
@@ -162,25 +164,28 @@ def two_torch_threads():
 
 # --- JAX's draws, recorded and handed to the port ---------------------------
 
-_ORIG = {"normal": jax.random.normal, "uniform": jax.random.uniform}
+_ORIG = {"normal": jax.random.normal, "uniform": jax.random.uniform,
+         "randint": jax.random.randint}
 
 
 @contextlib.contextmanager
 def record_draws(out):
-    """Record every `jax.random.normal`/`uniform` result into `out` as
-    (kind, array) while the block runs (under a jit trace: tracers, which
-    the traced function returns)."""
+    """Record every `jax.random.normal`/`uniform`/`randint` result into
+    `out` as (kind, array) while the block runs (under a jit trace: tracers,
+    which the traced function returns)."""
     def wrap(kind):
         def draw(*args, **kwargs):
             value = _ORIG[kind](*args, **kwargs)
             out.append((kind, value))
             return value
         return draw
-    jax.random.normal, jax.random.uniform = wrap("normal"), wrap("uniform")
+    for kind in _ORIG:
+        setattr(jax.random, kind, wrap(kind))
     try:
         yield out
     finally:
-        jax.random.normal, jax.random.uniform = _ORIG["normal"], _ORIG["uniform"]
+        for kind, fn in _ORIG.items():
+            setattr(jax.random, kind, fn)
 
 
 def jit_with_draws(fn):
@@ -229,6 +234,12 @@ def shared_draws(monkeypatch):
                         lambda g, shape, device: take("normal", shape).to(device))
     monkeypatch.setattr(tdisc, "draw_normal",
                         lambda g, shape, device: take("normal", shape).to(device))
+    monkeypatch.setattr(taug, "draw_uniform",
+                        lambda g, shape, device: take("uniform", shape).to(device))
+    monkeypatch.setattr(taug, "draw_normal",
+                        lambda g, shape, device: take("normal", shape).to(device))
+    monkeypatch.setattr(taug, "draw_randint",
+                        lambda g, lo, hi, shape, device: take("randint", shape).to(device))
     yield queue
     assert not queue, f"the port drew {len(queue)} fewer numbers than JAX"
 
