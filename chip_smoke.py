@@ -146,11 +146,12 @@ Phases, each printing its name and wall time:
                in chunks of 8, bf16 slabs): one G main phase, card against
                CPU at the small width with f32 slabs (without the
                cross-view term: one render); the recipe for 4 steps with
-               the numbers of phase 17 (its profiled step without the reg
-               phases, which do not render); after step 3 the G main phase
-               at full width: every gradient entry finite (before the
-               trainer's nan_to_num), its peak memory with `frustum_remat`
-               on and off (off reported, also if it does not fit).
+               the numbers of phase 17 but the phase spans (one more step
+               without the reg phases under the profiler, device activity
+               only: the idle share); after step 3 the G main phase at full
+               width: every gradient entry finite (before the trainer's
+               nan_to_num), its peak memory with `frustum_remat` on and off
+               (off reported, also if it does not fit).
 20. train-remat -- `--remat True` for 4 steps, beside phase 16's numbers;
                from the state after step 1, one copy with remat and one
                without run step 2 from its inputs and generator state under
@@ -160,6 +161,43 @@ Phases, each printing its name and wall time:
                launches; under `torch.no_grad()` it runs.
 Both kernels' launch counts stay 0 on every path of phases 17-21: the
 training path decodes with impl="ref", as the JAX trainer does.
+
+22. eg3d-cond -- conditional EG3D (`generator_config(cfg="afhq",
+               resolution=512, render_mask=False, semantic_channels=6,
+               gen_pose_cond=True)`: `TriPlaneGenerator`, OSGDecoder, one
+               SR stack) at full width: one batch-1 request at nrr 128 on
+               the importance sampler (f32, TF32 off) and one on the
+               frustum sampler (the serving keys but the fused decoder,
+               which it refuses with a ValueError, as the JAX package);
+               then phase 16's recipe with train.py's defaults for
+               --render_mask/--dis_mask (and its lambda_cross_view 0: the
+               cross-view renders read semantic outputs) for 4 steps at
+               batch 4, no snapshots, and one more step, device-only
+               profiled: steps 1-3 median, peak, idle share.
+23. seg2cat-bg -- the background generator (`use_bg=True`) under the
+               serving keys: 2 requests (decode_composite once each), the
+               `weight` image; the fused render against the unfused one
+               (f32, FUSED_TOL); decode_composite against its plain version
+               on the request's inputs; the importance render of the
+               request's planes through `G.decoder(f, d, impl="kernel")`
+               (24 launches) against impl="ref", and late_separate_decode
+               against its plain version on its first chunk; one request on
+               the importance sampler; then the recipe with `--use_bg True
+               --silhouette_loss True` for 4 steps at batch 4 as phase 22.
+24.-26. other generators -- one request each at full width (importance
+               sampler, f32, TF32 off): seg2face at 256² (the 4X SR pair),
+               the two-backbone `TriPlaneSemanticGenerator` at seg2cat
+               width, seg2cat with the entangled `MaskMappingNetwork` and
+               edge2car with `EdgeMappingNetwork`.
+27. dual-sr  -- the serving generator without sr_sem_precision (which
+               takes priority over dual_sr): synthesis from cached planes
+               with `dual_sr` on and off, alternating, as served (bf16 SR
+               blocks, TF32) and all f32 with TF32 off: f32 outputs within
+               DUAL_TOL (tests/test_dual_sr.py's gate), bf16 ones within the
+               bf16 blocks' own rounding against f32; each call's ms.
+Every request of phases 22-27 prints its outputs' shapes (finite), its
+time and the generator's parameter count; their paths join
+`launches_by_path`.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -1586,15 +1624,15 @@ def log_steps(path, rec, card, resident=()):
     return med
 
 
-def profiled_phases(path, trainer, inputs, gen_state, kw, card, every_phase=True):
-    """One extra step on a copy of the trainer, with every phase (step_idx
-    16) or without the reg phases (step_idx 5), under the profiler with
-    host and device activity, after one unprofiled warm-up step of the copy
-    (its first step allocates): each phase's device span and the step's
-    idle share (host tracing included in the wall time)."""
+def profiled_phases(path, trainer, inputs, gen_state, kw, card):
+    """One extra step with every phase (step_idx 16) on a copy of the
+    trainer, under the profiler with host and device activity, after one
+    unprofiled warm-up step of the copy (its first step allocates): each
+    phase's device span and the step's idle share (host tracing included in
+    the wall time)."""
     import copy
     from pix2pix3d_tpu_torch.models.triplane import STAGES
-    names, idx = (PHASES, 16) if every_phase else (PHASES_NO_REG, 5)
+    names, idx = PHASES, 16
     twin = copy.deepcopy(trainer)
     twin.step(*inputs, cuda_generator(gen_state), **dict(kw, step_idx=idx))
     wall, busy, spans, top = profile_step(
@@ -1605,7 +1643,7 @@ def profiled_phases(path, trainer, inputs, gen_state, kw, card, every_phase=True
     missing = [n for n in names if f"phase_{n}" not in spans]
     if missing:
         raise AssertionError(f"{path}: no device span for phases {missing}")
-    log(f"{path}: a step with {'every phase' if every_phase else 'no reg phases'} "
+    log(f"{path}: a step with every phase "
         f"under the profiler (host and device activity): wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall:.3f}; device span per phase (ms): "
         + ", ".join(f"{n} {spans[f'phase_{n}']:.1f}" for n in names) + f" [{card}]")
@@ -1762,9 +1800,9 @@ def phase_train_frustum(device, card, counts, folder, tmp):
             f"batch 4): every G gradient entry finite; peak max_memory_allocated with "
             f"frustum_remat on {peak_on / 2**30:.2f} GiB, off {off} (the trainer's "
             f"state {base / 2**30:.2f} GiB resident) [{card}]")
-        # the reg phases do not render: their spans are phase 17's
-        profiled_phases("train-frustum", trainer, inputs, gen_state, kw, card,
-                        every_phase=False)
+        # device activity only: tracing the host costs ~90 s a step on this
+        # path (its per-phase spans are in PERF.md)
+        idle_share("train-frustum", trainer, inputs, gen_state, kw, card)
 
     flags = ["--sampler", "frustum"]
     _, rec = run_recipe("train-frustum", flags, folder, tmp, device, card, counts,
@@ -1850,6 +1888,379 @@ def phase_autograd_guard(device, card, counts):
         if by_path["autograd-guard"]:
             raise AssertionError(f"the refused calls launched {name}")
     phase_done("autograd guard", t0)
+
+
+# ---------------------------------------------------------------------------
+# phases 22-27 (every generator of the JAX registries besides the shipped one)
+
+# the recipe with train.py's defaults for --render_mask/--dis_mask
+# (TriPlaneGenerator, no D_semantic); the cross-view term needs semantic
+# outputs (its renders read them, in both packages), so it is off, as in
+# train.py's defaults
+EG3D_FLAGS = ["--render_mask", "False", "--dis_mask", "False",
+              "--lambda_cross_view", "0"]
+BG_FLAGS = ["--use_bg", "True", "--silhouette_loss", "True"]
+# the fused decode+composite against the unfused render (f32 slabs): the
+# JAX suite's fused-vs-unfused generator tolerance, as phase 6
+FUSED_TOL = 5e-3
+# dual SR against the separate stacks, f32 with TF32 off: the gate of
+# tests/test_dual_sr.py.  As served (bf16 SR blocks), the grouped and the
+# dense convolutions round to bf16 in other places; that difference is held
+# to the one the bf16 blocks already make against f32 (the separate stacks
+# either way), and its share of the file's bf16 gate (2e-2, set for the 2X
+# stack on inputs of unit scale) is printed
+DUAL_TOL = 1e-5
+DUAL_BF16_TOL = 2e-2
+
+
+def request_inputs(G, seed, device):
+    """A batch-1 request: z, a random label map (or edge map, as the apps
+    rescale it) at the generator's resolution, phase 4's camera."""
+    from pix2pix3d_tpu_torch.apps.common import mask_input
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    gen = torch.Generator().manual_seed(seed)
+    res = G.img_resolution
+    z = torch.randn((1, G.z_dim), generator=gen).to(device)
+    if G.data_type == "edge":
+        raw = (torch.rand((res, res, 1), generator=gen) > 0.9).float() * 255
+    else:
+        raw = torch.randint(0, getattr(G, "semantic_channels", 6), (res, res, 1),
+                            generator=gen).float()
+    c2w = LookAtPoseSampler.sample(math.pi / 2, math.pi / 2, [0, 0, -0.06],
+                                   radius=2.7, device=device)
+    pose = pose_to_conditioning(c2w, fov_to_intrinsics(18.837, device=device))
+    return z, pose, {"mask": mask_input(G, raw.numpy(), device), "pose": pose}
+
+
+def check_shapes(outs, expect):
+    for key, shape in expect.items():
+        if tuple(outs[key].shape) != shape:
+            raise AssertionError(f"{key} {tuple(outs[key].shape)} != {shape}")
+        if not torch.isfinite(outs[key]).all():
+            raise AssertionError(f"{key} has non-finite values")
+
+
+def variant_requests(path, G, counts, card, nrr, per_request, n=1, tf32=False,
+                     seed=11, **kw):
+    """One warm-up and `n` batch-1 requests of `G` on `path` (const noise,
+    det, TF32 `tf32`), each request's launches checked; the outputs' shapes
+    and finiteness; logs the times and the parameter count.  Returns the
+    last outputs and the inputs."""
+    from pix2pix3d_tpu_torch.ops import precision
+    z, pose, batch = request_inputs(G, seed, next(G.parameters()).device)
+
+    def request():
+        with torch.no_grad(), precision.policy(tf32):
+            return G(z, pose, batch, neural_rendering_resolution=nrr,
+                     noise_mode="const", det=True, **kw)
+
+    request()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = counts.requests(path, request, n, per_request)
+    res, sem = G.img_resolution, getattr(G, "semantic_channels", None)
+    expect = {"image": (1, res, res, 3), "image_raw": (1, nrr, nrr, 3),
+              "image_depth": (1, nrr, nrr, 1)}
+    if "semantic" in outs:
+        expect.update(semantic=(1, res, res, sem), semantic_raw=(1, nrr, nrr, sem))
+    if "weight" in outs:
+        expect["weight"] = (1, nrr, nrr, 1)
+    check_shapes(outs, expect)
+    log(f"{path}: {type(G).__name__} ({type(G.backbone.mapping).__name__}, "
+        f"{type(G.superresolution).__name__}), "
+        f"{sum(p.numel() for p in G.parameters()) / 1e6:.1f} M params; {n} request(s) "
+        f"at batch 1, nrr {nrr}: ms {[round(t, 3) for t in times]}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; outputs "
+        + ", ".join(f"{k} {v}" for k, v in expect.items())
+        + f" finite; launches decode_composite "
+        f"{counts.by_path['decode_composite'][path]}, late_separate_decode "
+        f"{counts.by_path['late_separate_decode'][path]} [{card}]")
+    return outs, (z, pose, batch)
+
+
+def idle_share(path, trainer, inputs, gen_state, kw, card):
+    """After the run's last step (the trainer warm), one more step without
+    the reg phases under the profiler, device activity only: the idle
+    share."""
+    from pix2pix3d_tpu_torch.models.triplane import STAGES
+    kw = dict(kw, step_idx=5)
+    wall, busy, _, top = profile_step(
+        lambda: trainer.step(*inputs, cuda_generator(gen_state), **kw),
+        [f"phase_{n}" for n in PHASES_NO_REG] + list(STAGES), False)
+    log(f"{path}: a step with no reg phases under the profiler (device "
+        f"activity): wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f} [{card}]")
+    for key, ms, count in top[:3]:
+        log(f"  {ms:8.3f} ms {count:5d}x  {key[:90]}")
+
+
+def idle_share_after(path, card):
+    """An `after` hook for run_recipe: `idle_share` after the last step."""
+    def after(trainer, inputs, gen_state, kw, stats):
+        if kw["step_idx"] == TRAIN_STEPS - 1:
+            idle_share(path, trainer, inputs, gen_state, kw, card)
+    return after
+
+
+def phase_eg3d(device, card, counts, folder, tmp):
+    """Phase 22: conditional EG3D (`TriPlaneGenerator`, train.py's
+    `--render_mask False`) at full width: a request on each sampler, the
+    fused decoder refused, then the recipe with train.py's defaults for
+    --render_mask/--dis_mask for 4 steps."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+
+    cfg = config.generator_config(cfg="afhq", resolution=512, render_mask=False,
+                                  semantic_channels=6, gen_pose_cond=True)
+    G = build_generator(device=device, seed=0, **cfg)
+    variant_requests("eg3d-cond", G, counts, card, APP_NRR, NO_LAUNCHES)
+    frustum = {k: v for k, v in config.SERVING_RENDERING.items() if k != "decoder_impl"}
+    G.rendering_kwargs.update(frustum)
+    variant_requests("eg3d-cond-frustum", G, counts, card, APP_NRR, NO_LAUNCHES,
+                     tf32=True)
+    G.rendering_kwargs["decoder_impl"] = "kernel"
+    z, pose, batch = request_inputs(G, 11, device)
+    try:
+        with torch.no_grad():
+            G(z, pose, batch, neural_rendering_resolution=APP_NRR, noise_mode="const")
+    except ValueError as e:
+        if "OSGDecoderSemanticLateSeparate" not in str(e):
+            raise
+        log(f"eg3d-cond: decoder_impl='kernel' refused: {str(e)[:100]}...")
+    else:
+        raise AssertionError("TriPlaneGenerator ran the fused decoder")
+    del G
+    torch.cuda.empty_cache()
+    _, rec = run_recipe("train-eg3d", EG3D_FLAGS, folder, tmp, device, card, counts,
+                        after=idle_share_after("train-eg3d", card),
+                        loop_overrides=dict(snapshot_ticks=None, image_snapshot_ticks=None))
+    log_steps("train-eg3d", rec, card)
+    phase_done("eg3d-cond", t0)
+
+
+def phase_seg2cat_bg(device, card, counts, folder, tmp):
+    """Phase 23: the background generator (`--use_bg True`) at full seg2cat
+    width.  Requests under the serving keys (decode_composite once each),
+    the fused render against the unfused one, the importance render through
+    the decoder kernel against impl="ref", each kernel against its plain
+    version on this path's inputs; then the recipe with `--use_bg True
+    --silhouette_loss True` for 4 steps."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.ops import decode_composite as dc
+    from pix2pix3d_tpu_torch.ops import late_separate_decode as lsd
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.render.ray_sampler import sample_rays
+
+    cfg = config.serving_generator_config("seg2cat", use_bg=True)
+    G = build_generator(device=device, seed=0, **cfg)
+    kernel, dkernel = dc.fused_decode_composite, lsd.late_separate_decode
+    captured = []
+
+    def recording(*a, **kw):
+        if not captured:
+            captured.append((a, kw))
+        return kernel(*a, **kw)
+
+    dc.fused_decode_composite = recording
+    try:
+        outs, (z, pose, batch) = variant_requests(
+            "seg2cat-bg", G, counts, card, config.SERVING_NEURAL_RENDERING_RESOLUTION,
+            ONE_DECODE_COMPOSITE, n=2, tf32=True)
+    finally:
+        dc.fused_decode_composite = kernel
+    w = outs["weight"]
+    log(f"seg2cat-bg: weight image in [{float(w.min()):.4f}, {float(w.max()):.4f}]")
+
+    # the fused render against the unfused one, all f32, TF32 off
+    rk = G.rendering_kwargs
+    serving = dict(rk)
+    rk.update(frustum_bf16=False, sr_sem_precision=None)
+    out_f32 = {}
+    with torch.no_grad(), precision.policy(False):
+        ws = G.mapping(z, pose, batch)
+        for impl in ("kernel", None):
+            rk["decoder_impl"] = impl
+            out_f32[impl] = G.synthesis(ws, pose, neural_rendering_resolution=APP_NRR,
+                                        noise_mode="const", force_fp32=True)
+    rk.clear()
+    rk.update(serving)
+    for key in ("image", "image_raw", "image_depth", "semantic", "semantic_raw",
+                "weight"):
+        abs_e, rel_e, used, _ = compare((out_f32["kernel"][key],),
+                                        (out_f32[None][key],), FUSED_TOL)
+        log(f"seg2cat-bg unfused vs kernel (f32) {key:12s}: max abs {abs_e:.3e} rel "
+            f"{rel_e:.3e} ({used:.3f} of tol {FUSED_TOL})")
+    del out_f32
+
+    # decode_composite against its plain version on this path's inputs
+    a, kw = captured[0]
+    tol, rms_tol = TOL[a[0].dtype]
+    with torch.no_grad(), precision.policy(False):
+        got = kernel(*a, **kw)
+        torch.cuda.synchronize()
+        want = dc.decode_composite_plain(*a, **kw)
+        abs_e, _, used, rms = compare(got, want, tol, rms_tol)
+    log(f"seg2cat-bg decode_composite vs plain on the path's inputs (feats "
+        f"{tuple(a[0].shape)} {a[0].dtype}, {kw}): max abs {abs_e:.3e} ({used:.3f} of "
+        f"tol {tol}), RMS {rms:.3e} (tol {rms_tol}) [{card}]")
+    del captured, got, want, a
+
+    # the importance renderer through the decoder kernel
+    planes = outs["planes"]
+    rk_imp = config.preset_generator_config("seg2cat")["rendering_kwargs"]
+    ray_o, ray_d = sample_rays(pose[:, :16].reshape(-1, 4, 4),
+                               pose[:, 16:].reshape(-1, 3, 3), APP_NRR)
+    chunk = rk_imp.get("point_chunk", 65536)
+    expected = sum(math.ceil(APP_NRR ** 2 * rk_imp[k] / chunk)
+                   for k in ("depth_resolution", "depth_resolution_importance"))
+    dcaptured = []
+
+    def drecording(*a, **kw):
+        if not dcaptured:
+            dcaptured.append((a, kw))
+        return dkernel(*a, **kw)
+
+    def render(impl):
+        return G.renderer(planes, lambda f, d: G.decoder(f, d, impl=impl),
+                          ray_o, ray_d, rk_imp, det=True)
+
+    with torch.no_grad(), precision.policy(False):
+        lsd.late_separate_decode = drecording
+        try:
+            got = counts.run("seg2cat-bg-importance-kernel", lambda: render("kernel"))
+        finally:
+            lsd.late_separate_decode = dkernel
+        want = render("ref")
+    launched = {n: c["seg2cat-bg-importance-kernel"] for n, c in counts.by_path.items()}
+    if launched != {"decode_composite": 0, "late_separate_decode": expected}:
+        raise AssertionError(f"seg2cat-bg importance render launched {launched}, "
+                             f"expected {expected} late_separate_decode")
+    for name, g_, w_ in zip(("features", "depth", "weight sum"), got, want):
+        abs_e, rel_e, used, _ = compare((g_,), (w_,), RENDER_TOL)
+        log(f"seg2cat-bg importance render, kernel vs ref decoder {name:10s}: max abs "
+            f"{abs_e:.3e} rel {rel_e:.3e} ({used:.3f} of tol {RENDER_TOL})")
+    a, kw = dcaptured[0]
+    with torch.no_grad(), precision.policy(False):
+        got = dkernel(*a, **kw)
+        torch.cuda.synchronize()
+        want = lsd.late_separate_decode_plain(*a, **kw)
+        d_abs, used, rms_c, rms_s = compare_decode(got, want, kw["compute_dtype"])
+    log(f"seg2cat-bg late_separate_decode vs plain on the path's chunk (feats "
+        f"{tuple(a[0].shape)} {a[0].dtype}): max abs {d_abs:.3e} ({used:.3f} of tol), "
+        f"RMS colors {rms_c:.3e} sigma {rms_s:.3e}; {launched['late_separate_decode']} "
+        f"launches in the render [{card}]")
+    del dcaptured, got, want, a, planes, outs
+
+    # the same generator on the importance sampler (impl="ref", no kernel)
+    for k in config.SERVING_RENDERING:
+        rk.pop(k, None)
+    variant_requests("seg2cat-bg-importance", G, counts, card, APP_NRR, NO_LAUNCHES)
+    del G
+    torch.cuda.empty_cache()
+    _, rec = run_recipe("train-bg", BG_FLAGS, folder, tmp, device, card, counts,
+                        after=idle_share_after("train-bg", card),
+                        loop_overrides=dict(snapshot_ticks=None, image_snapshot_ticks=None))
+    log_steps("train-bg", rec, card)
+    phase_done("seg2cat-bg", t0)
+
+
+def phase_other_generators(device, card, counts):
+    """Phases 24-26: one request each of seg2face at 256² (the 4X SR pair),
+    the two-backbone generator at seg2cat width, and the entangled mappings
+    (seg2cat with MaskMappingNetwork, edge2car with EdgeMappingNetwork), all
+    full width, importance sampler, f32 with TF32 off."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+
+    cases = [("seg2face-256", config.preset_generator_config("seg2face", resolution=256),
+              APP_NRR)]
+    two = config.preset_generator_config("seg2cat")
+    two["class_name"] = "TriPlaneSemanticGenerator"
+    cases.append(("two-backbone", two, APP_NRR))
+    for name, preset, mapping, nrr in (("entangled-seg2cat", "seg2cat",
+                                        "MaskMappingNetwork", APP_NRR),
+                                       ("entangled-edge2car", "edge2car",
+                                        "EdgeMappingNetwork", 64)):
+        cfg = config.preset_generator_config(preset)
+        cfg["mapping_kwargs"]["class_name"] = mapping
+        cases.append((name, cfg, nrr))
+    for name, cfg, nrr in cases:
+        t1 = time.time()
+        G = build_generator(device=device, seed=0, **cfg)
+        variant_requests(name, G, counts, card, nrr, NO_LAUNCHES)
+        del G
+        torch.cuda.empty_cache()
+        log(f"{name}: built and served in {time.time() - t1:.1f} s")
+    phase_done("other generators", t0)
+
+
+def phase_dual_sr(device, card, counts):
+    """Phase 27: the serving generator with `rendering_kwargs['dual_sr']`
+    against the separate SR stacks (sr_sem_precision dropped: it takes
+    priority over dual_sr), as served (bf16 blocks, TF32) and all f32 with
+    TF32 off; the request times of both."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.ops import precision
+
+    cfg = config.serving_generator_config("seg2cat")
+    cfg["rendering_kwargs"].pop("sr_sem_precision")
+    G = build_generator(device=device, seed=0, **cfg)
+    z, pose, batch = request_inputs(G, 12, device)
+    nrr = config.SERVING_NEURAL_RENDERING_RESOLUTION
+    with torch.no_grad(), precision.policy(True):
+        ws = G.mapping(z, pose, batch)
+        planes = G.synthesis(ws, pose, neural_rendering_resolution=nrr,
+                             noise_mode="const")["planes"]
+    rk = G.rendering_kwargs
+    results = {}
+    for label, tf32, fp32 in (("bf16", True, False), ("f32", False, True)):
+        for dual in (False, True, False, True):
+            rk["dual_sr"] = dual
+
+            def request():
+                with torch.no_grad(), precision.policy(tf32):
+                    return G.synthesis(ws, pose, neural_rendering_resolution=nrr,
+                                       noise_mode="const", force_fp32=fp32,
+                                       planes=planes)
+            times, out = counts.run("dual-sr", lambda: timed_requests(request, 1))
+            results.setdefault((label, dual), []).append(times[0])
+            results[(label, dual, "out")] = out
+        log(f"dual-sr ({label}): synthesis from cached planes, ms separate "
+            f"{[round(t, 3) for t in results[(label, False)]]}, dual "
+            f"{[round(t, 3) for t in results[(label, True)]]} [{card}]")
+    for key in ("image", "semantic"):
+        def out(label, dual):
+            return results[(label, dual, "out")][key].float()
+        abs_e, rel_e, used, _ = compare((out("f32", True),), (out("f32", False),),
+                                        DUAL_TOL)
+        log(f"dual-sr (f32) {key:8s}: dual vs separate max abs {abs_e:.3e} rel "
+            f"{rel_e:.3e} ({used:.3f} of tol {DUAL_TOL})")
+        err = (out("bf16", True) - out("bf16", False)).abs()
+        rounding = float((out("bf16", False) - out("f32", False)).abs().max())
+        share = float((err / (DUAL_BF16_TOL * (1 + out("bf16", False).abs()))).max())
+        if not float(err.max()) <= rounding:
+            raise AssertionError(f"dual-sr (bf16) {key}: dual vs separate "
+                                 f"{float(err.max()):.3e} > the bf16 blocks' own "
+                                 f"rounding {rounding:.3e}")
+        log(f"dual-sr (bf16) {key:8s}: dual vs separate max abs {float(err.max()):.3e} "
+            f"(the bf16 blocks against f32: {rounding:.3e}; {share:.3f} of "
+            f"tests/test_dual_sr.py's bf16 allclose at {DUAL_BF16_TOL}; largest "
+            f"|output| {float(out('bf16', False).abs().max()):.3f})")
+    for name, by_path in counts.by_path.items():
+        want = 8 if name == "decode_composite" else 0
+        if by_path["dual-sr"] != want:
+            raise AssertionError(f"dual-sr launched {name} {by_path['dual-sr']} times")
+    del G
+    torch.cuda.empty_cache()
+    phase_done("dual-sr", t0)
 
 
 def main():
@@ -2263,7 +2674,12 @@ def main():
         phase_sinks(card)
         phase_train_frustum(device, card, counts, folder, tmp)
         phase_train_remat(device, card, counts, folder, tmp)
-    phase_autograd_guard(device, card, counts)
+        phase_autograd_guard(device, card, counts)
+        # ---- 22.-27. the other generators of the registries
+        phase_eg3d(device, card, counts, folder, tmp)
+        phase_seg2cat_bg(device, card, counts, folder, tmp)
+    phase_other_generators(device, card, counts)
+    phase_dual_sr(device, card, counts)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

@@ -30,10 +30,10 @@ RENDERING_PRESETS = {
                      avg_camera_radius=1.7, avg_camera_pivot=[0, 0, 0]),
 }
 
-# SR module selection by output resolution (ref train.py:389-399).  The
-# JAX package's 256 -> SuperresolutionHybrid4X entry is not ported yet.
+# SR module selection by output resolution (ref train.py:389-399).
 SR_MODULES = {
     512: ("SuperresolutionHybrid8XDC", "SuperresolutionHybrid8XDC_semantic"),
+    256: ("SuperresolutionHybrid4X", "SuperresolutionHybrid4X_semantic"),
     128: ("SuperresolutionHybrid2X", "SuperresolutionHybrid2X_semantic"),
 }
 
@@ -43,10 +43,6 @@ def rendering_kwargs(cfg, resolution, gen_pose_cond=False, gpc_reg_prob=0.5,
                      density_reg_p_dist=0.004, reg_type="l1", decoder_lr_mul=1.0,
                      sr_module=None):
     """Full rendering_kwargs dict (ref train.py:401-461)."""
-    if resolution == 256:
-        raise NotImplementedError(
-            "resolution 256 (SuperresolutionHybrid4X) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4")
     sr, sr_sem = SR_MODULES[resolution]
     if sr_module is not None:
         sr = sr_module
@@ -142,10 +138,11 @@ SERVING_RENDERING = dict(
 SERVING_NEURAL_RENDERING_RESOLUTION = 128
 
 
-def serving_generator_config(name="seg2cat"):
-    """`preset_generator_config(name)` with the serving overrides applied."""
+def serving_generator_config(name="seg2cat", **overrides):
+    """`preset_generator_config(name, **overrides)` with the serving
+    overrides applied (e.g. `use_bg=True`: the background generator)."""
     cfg = preset_generator_config(name, sr_num_fp16_res=4,
-                                  g_num_fp16_res=SERVING_G_NUM_FP16_RES)
+                                  g_num_fp16_res=SERVING_G_NUM_FP16_RES, **overrides)
     cfg["mapping_kwargs"]["encoder_num_fp16_res"] = SERVING_G_NUM_FP16_RES
     cfg["rendering_kwargs"].update(SERVING_RENDERING)
     return cfg

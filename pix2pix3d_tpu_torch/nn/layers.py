@@ -134,20 +134,30 @@ class EqualConv2d(nn.Module):
 
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, padding=0,
-                     resample_filter=None, demodulate=True, flip_weight=True):
+                     resample_filter=None, demodulate=True, flip_weight=True,
+                     groups=1):
     """Style-modulated conv (ref `networks_stylegan2.py:34-91`), NCHW.
 
-    x `[B, I, H, W]`, weight `[O, I, kh, kw]`, styles `[B, I]`, noise
-    broadcastable to `[B, 1, H', W']`."""
+    x `[B, I, H, W]`, weight `[O, I // groups, kh, kw]`, styles `[B, I]`,
+    noise broadcastable to `[B, 1, H', W']`.  With `groups` > 1 the
+    channels split into independent convolutions (the dual SR pass runs two
+    stacks' layers as one grouped convolution), each demodulated over its
+    own inputs."""
     dcoefs = None
     if demodulate:
-        w_sq = weight.float().square().sum(dim=(2, 3))            # [O, I]
+        b, o = styles.shape[0], weight.shape[0]
+        w_sq = weight.float().square().sum(dim=(2, 3))            # [O, I/G]
         s_sq = styles.float().square()                            # [B, I]
-        dcoefs = torch.rsqrt(s_sq @ w_sq.t() + 1e-8)              # [B, O]
+        if groups == 1:
+            dcoefs = torch.rsqrt(s_sq @ w_sq.t() + 1e-8)          # [B, O]
+        else:
+            d = torch.einsum("bgi,goi->bgo", s_sq.reshape(b, groups, -1),
+                             w_sq.reshape(groups, o // groups, -1))
+            dcoefs = torch.rsqrt(d.reshape(b, o) + 1e-8)
 
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
-                        padding=padding, flip_weight=flip_weight)
+                        padding=padding, groups=groups, flip_weight=flip_weight)
     if demodulate:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     if noise is not None:

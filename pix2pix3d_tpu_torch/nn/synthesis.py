@@ -121,6 +121,8 @@ class SynthesisBlock(nn.Module):
                  resample_filter=(1, 3, 3, 1), conv_clamp=256, use_fp16=False, up=2):
         super().__init__()
         self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.resolution = resolution
         self.use_fp16 = use_fp16
         self.up = up
         self.register_buffer("resample_filter",

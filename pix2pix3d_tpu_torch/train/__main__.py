@@ -10,14 +10,19 @@ flag (ref `train.py:181-534`), e.g. the seg2cat recipe
         --lambda_cross_view=1e-4 --only_raw_recons=True
 
 It trains on one card (`--device cuda`, the default; raises without one) or
-on the CPU with `--device cpu`, with every flag of `train.py`: `--aug
-ada|fixed` (ADA), `--sampler frustum` (with `--frustum_depth_steps`,
+on the CPU with `--device cpu`.  Every flag of `train.py` runs but
+`--num-nodes` above 1 (multi-card training), which raises
+`NotImplementedError` naming its ROADMAP item: every generator the flags
+select (train.py's defaults `--render_mask False --dis_mask False` train
+the conditional EG3D `TriPlaneGenerator` without D_semantic; `--use_bg
+True` the background-plane generator, with `--silhouette_loss True` its
+silhouette term; any resolution of 128², 256² and 512²), `--aug ada|fixed`
+(ADA), `--sampler frustum` (with `--frustum_depth_steps`,
 `--frustum_chunk`, `--frustum_bf16`), `--remat True`, and the TensorBoard
 event file (always) and wandb (with `PIX2PIX3D_WANDB`).  `--jit_phases` is
 accepted and has no effect: the port runs the phases eagerly, one after
 another, which is the JAX package's per-phase mode's math
-(`train/loop.py:73-81` there).  `--num-nodes` above 1 (multi-card training)
-raises `NotImplementedError` naming its ROADMAP item.
+(`train/loop.py:73-81` there).
 """
 
 import argparse

@@ -350,10 +350,72 @@ def test_released_config_forward_matches_jax(name):
 
 
 def test_unported_configs_raise():
+    """What the apps' generator still refuses: per-output-tile frustum
+    sub-windows (ROADMAP Queue 1, frustum leftovers).  The entangled
+    mappings and 256² that this test once refused build now and meet JAX
+    (`test_formerly_unported_configs_match_jax`)."""
     cfg = _small_cfg(tconfig)
-    for name in ("MaskMappingNetwork", "EdgeMappingNetwork"):
+    cfg["rendering_kwargs"].update(sampler="frustum", frustum_tiles=(8, 96, 8, 96, 256))
+    Gt = tbuild(device="cpu", **cfg)
+    _, _, pose = _inputs(0)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Gt.synthesis(None, torch.from_numpy(pose)[None], neural_rendering_resolution=16,
+                     planes=torch.zeros(1, 3, 16, 16, 32))
+
+
+def _formerly_unported(name):
+    """(the config's JAX and port kwargs, the sub-module they changed)."""
+    over = dict(cbase=1024, cmax=32, sr_num_fp16_res=0)
+    if name == "256":
+        cfgs = [_narrow(m.preset_generator_config("seg2face", resolution=256, **over))
+                for m in (jconfig, tconfig)]
+        return cfgs, "superresolution_semantic"
+    preset = "edge2car" if name == "EdgeMappingNetwork" else "seg2cat"
+    cfgs = [_narrow(m.preset_generator_config(preset, resolution=128, **over))
+            for m in (jconfig, tconfig)]
+    for cfg in cfgs:
         cfg["mapping_kwargs"]["class_name"] = name
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tbuild(device="cpu", **cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tconfig.preset_generator_config("seg2cat", resolution=256)
+    return cfgs, "mapping"
+
+
+@pytest.mark.parametrize("name", ["MaskMappingNetwork", "EdgeMappingNetwork", "256"])
+def test_formerly_unported_configs_match_jax(name):
+    """The entangled mappings (seg2cat's one-hot masks, edge2car's raw edge
+    map) and seg2face at 256² (the 4X SR pair) build in both packages; the
+    part each one brought, with JAX's `init` bridged in, meets JAX within
+    1e-5 (the module tolerance of tests/test_dual_sr.py): the generator's
+    mapping (truncation psi 0.7 toward a nonzero w_avg), or the semantic SR
+    stack on a 64² input."""
+    (jcfg, tcfg), part = _formerly_unported(name)
+    G, Gt = jbuild(**jcfg), tbuild(device="cpu", **tcfg)
+    rng = np.random.RandomState(3)
+    if part == "mapping":
+        tree = jax.device_get(G.backbone.mapping.init(jax.random.PRNGKey(1)))
+        tree["w_avg"] = rng.randn(*np.shape(tree["w_avg"])).astype(np.float32)
+        Gt.backbone.mapping.load_state_dict(bridge.params_from_jax(tree), strict=True)
+        z, mask, pose = _inputs(4, edge=name == "EdgeMappingNetwork")
+        mask_in = tcommon.mask_input(Gt, mask, "cpu")
+        batch = {"mask": mask_in, "pose": torch.from_numpy(pose)[None]}
+        want = G.mapping({"backbone": {"mapping": tree}}, jnp.asarray(z),
+                         jnp.asarray(pose[None]),
+                         {k: jnp.asarray(v.numpy()) for k, v in batch.items()},
+                         truncation_psi=0.7)
+        got = Gt.mapping(torch.from_numpy(z), batch["pose"], batch,
+                         truncation_psi=0.7)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        return
+    jm = G.superresolution_semantic
+    assert type(Gt.superresolution).__name__ == "SuperresolutionHybrid4X"
+    tree = jax.device_get(jm.init(jax.random.PRNGKey(2)))
+    Gt.superresolution_semantic.load_state_dict(bridge.params_from_jax(tree),
+                                                strict=True)
+    sem = rng.randn(1, 64, 64, 19).astype(np.float32)
+    x = rng.randn(1, 64, 64, 32).astype(np.float32)
+    ws = rng.randn(1, 14, 512).astype(np.float32)
+    want = jm(tree, jnp.asarray(sem), jnp.asarray(x), jnp.asarray(ws), noise_mode="const")
+    got = Gt.superresolution_semantic(
+        torch.from_numpy(sem).permute(0, 3, 1, 2), torch.from_numpy(x).permute(0, 3, 1, 2),
+        torch.from_numpy(ws), noise_mode="const")
+    assert tuple(got.shape) == (1, 19, 256, 256)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
