@@ -199,6 +199,30 @@ Every request of phases 22-27 prints its outputs' shapes (finite), its
 time and the generator's parameter count; their paths join
 `launches_by_path`.
 
+28. metrics  -- the metrics package through the full-width serving
+               generator (random weights, nrr 128) at batch 8 on phase 17's
+               16 synthetic 512² images and masks (`train.dataset
+               .build_dataset`): `metric_main.calc_metric("miou500")` in full
+               (63 forwards: miou, pixel_acc, total_time, ms per image against
+               8 batch-1 requests of phase 4, peak memory); FID, KID and PR on
+               the random-convolution proxy and FID and IS on the port's
+               Inception-v3 (random weights written to a temporary npz named
+               by PIX2PIX3D_INCEPTION_NPZ) at METRIC_REAL real and METRIC_GEN
+               generated images (the registered sizes, fid2k's 2000, do not
+               fit this script's time); PPL on METRIC_PPL samples.  Each value
+               with its seconds, split into generation and features by
+               `utils.profiling.PhaseTimer`.  decode_composite must launch
+               once per generator forward (and per PPL synthesis) on the
+               `metrics` path, late_separate_decode never; one batch-8 call's
+               inputs (N=8) against the plain version at phase 3's
+               tolerances, with times and bound; the fused render against
+               decoder_impl=None on one batch, as served: argmax semantic
+               maps agree on at least ARGMAX_AGREE of pixels (measured
+               0.99905 on an NVIDIA H100 80GB HBM3 at 700 W, where 0.011 of
+               the pixels had their top two unfused logits within the
+               renders' largest logit difference);
+               that batch's forward under the profiler (idle share, stages).
+
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
 `device_ms`, `plain_device_ms` and `library_device_ms` time the same calls
@@ -2263,6 +2287,236 @@ def phase_dual_sr(device, card, counts):
     phase_done("dual-sr", t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 28 (the metrics package through the serving generator)
+
+# the metrics' batch (compute_miou, iterate_gen_features)
+METRIC_BATCH = 8
+# the small counts of the metrics whose registered sizes (fid2k: 2000
+# generated images) do not fit this script's time
+METRIC_REAL, METRIC_GEN, METRIC_IS, METRIC_PPL, PPL_BATCH = 16, 64, 16, 16, 4
+# the fused render against decoder_impl=None on one metric batch, as served
+# (bf16 slabs, TF32): the share of pixels whose argmax semantic labels agree
+ARGMAX_AGREE = 0.99
+
+
+def numbers(value):
+    """The numbers in a metric's result (nested dicts, tuples, floats)."""
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (list, tuple)):
+        return [x for v in value for x in numbers(v)]
+    return [value] if isinstance(value, (int, float)) else []
+
+
+def phase_metrics(device, card, counts, folder, tmp, sfu_per_s, request_ms):
+    """Phase 28: the metrics package through the full-width serving
+    generator at batch 8 (nrr 128): `calc_metric("miou500")` in full, FID,
+    KID and PR on the random-convolution proxy and FID and IS on the port's
+    Inception (random weights in a temporary npz named by
+    PIX2PIX3D_INCEPTION_NPZ) at small counts, PPL; generation and feature
+    time split with `utils.profiling.PhaseTimer`; decode_composite's
+    launches (one per generator forward) and its N=8 inputs against its
+    plain version; the fused render against decoder_impl=None."""
+    t0 = time.time()
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.metrics import (frechet_inception_distance, inception,
+                                             inception_score, kernel_inception_distance,
+                                             metric_main, metric_utils,
+                                             perceptual_path_length, precision_recall)
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.ops import decode_composite as dc
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.train.dataset import build_dataset
+    from pix2pix3d_tpu_torch.utils.profiling import PhaseTimer
+
+    cfg = config.serving_generator_config("seg2cat")
+    G = build_generator(device=device, seed=0, **cfg)
+    # the metrics call G without a rendering resolution: serve at 128²
+    G.neural_rendering_resolution = config.SERVING_NEURAL_RENDERING_RESOLUTION
+    ds = build_dataset(*folder, "seg", use_labels=True)
+    timer = PhaseTimer()
+    calls = {"forward": 0, "synthesis": 0}
+
+    class Timed:
+        """G with its forwards and syntheses timed and counted."""
+
+        def __getattr__(self, name):
+            return getattr(G, name)
+
+        def __call__(self, *a, **kw):
+            calls["forward"] += 1
+            with timer.tick("generate", block_on=device):
+                return G(*a, **kw)
+
+        def synthesis(self, *a, **kw):
+            calls["synthesis"] += 1
+            with timer.tick("generate", block_on=device):
+                return G.synthesis(*a, **kw)
+
+    class TimedDetector:
+        def __init__(self, det):
+            self.det = det
+
+        def __call__(self, images):
+            with timer.tick("features", block_on=device):
+                return self.det(images)
+
+        def __getattr__(self, name):     # logits, where the detector has them
+            fn = getattr(self.det, name)
+
+            def timed(*a):
+                with timer.tick("features", block_on=device):
+                    return fn(*a)
+            return timed
+
+    extractor = metric_utils.get_feature_extractor
+    metric_utils.get_feature_extractor = lambda dev: TimedDetector(extractor(dev))
+    kernel = dc.fused_decode_composite
+    captured = []
+
+    def recording(*a, **kw):
+        if not captured:
+            captured.append((a, kw))
+        return kernel(*a, **kw)
+
+    def run(label, fn):
+        """`fn()` on the metrics path (TF32 as served), its launches counted;
+        logs its value, seconds, generate/features split, forwards."""
+        timer.totals.clear()
+        timer.counts.clear()
+        before = dict(calls)
+        t1 = time.perf_counter()
+        with torch.no_grad(), precision.policy(True):
+            value = counts.run("metrics", fn)
+        secs = time.perf_counter() - t1
+        if not all(math.isfinite(x) for x in numbers(value)):
+            raise AssertionError(f"metrics {label}: {value} is not finite")
+        split = ", ".join(f"{k} {timer.totals[k]:.3f} s in {timer.counts[k]} calls"
+                          for k in timer.totals)
+        log(f"metrics {label}: {value} in {secs:.2f} s ({split}; generator "
+            f"forwards {calls['forward'] - before['forward']}, syntheses "
+            f"{calls['synthesis'] - before['synthesis']}) [{card}]")
+        return value
+
+    npz = os.path.join(tmp, "inception_v3.npz")
+    dc.fused_decode_composite = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res = run("miou500", lambda: metric_main.calc_metric(
+            "miou500", G=Timed(), dataset=ds, device=device))
+        peak = torch.cuda.max_memory_allocated()
+        n_img = calls["forward"] * METRIC_BATCH
+        gen_ms = 1e3 * timer.totals["generate"] / n_img
+        log(f"metrics miou500: miou {res['results']['miou']:.6f}, pixel_acc "
+            f"{res['results']['pixel_acc']:.6f}, total_time {res['total_time']:.2f} s; "
+            f"{calls['forward']} forwards at batch {METRIC_BATCH}: "
+            f"{1e3 * res['total_time'] / n_img:.2f} ms per image in all, "
+            f"{gen_ms:.2f} ms per image in the generator (batch-1 request "
+            f"{request_ms:.3f} ms, 8x {8 * request_ms:.1f} ms against "
+            f"{METRIC_BATCH * gen_ms:.1f} ms a batch-8 forward); peak "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        opts = dict(G=Timed(), dataset=ds, device=device)
+        for label, fn in (("fid", frechet_inception_distance.compute_fid),
+                          ("kid", kernel_inception_distance.compute_kid),
+                          ("pr", precision_recall.compute_pr)):
+            run(f"{label} (proxy, max_real {METRIC_REAL}, num_gen {METRIC_GEN})",
+                lambda: fn(metric_utils.MetricOptions(**opts), max_real=METRIC_REAL,
+                           num_gen=METRIC_GEN))
+        np.savez(npz, **inception.random_inception_weights(0))
+        os.environ["PIX2PIX3D_INCEPTION_NPZ"] = npz
+        if not isinstance(metric_utils.get_feature_extractor(device).det,
+                          inception.InceptionV3Features):
+            raise AssertionError("PIX2PIX3D_INCEPTION_NPZ set, no Inception loaded")
+        run(f"fid (Inception, random weights, max_real {METRIC_REAL}, num_gen "
+            f"{METRIC_GEN})", lambda: frechet_inception_distance.compute_fid(
+                metric_utils.MetricOptions(**opts), max_real=METRIC_REAL,
+                num_gen=METRIC_GEN))
+        run(f"is (Inception, random weights, num_gen {METRIC_IS})",
+            lambda: inception_score.compute_is(metric_utils.MetricOptions(**opts),
+                                               num_gen=METRIC_IS))
+        run(f"ppl (num_samples {METRIC_PPL}, batch {PPL_BATCH})",
+            lambda: perceptual_path_length.compute_ppl(
+                metric_utils.MetricOptions(**opts), num_samples=METRIC_PPL,
+                batch_size=PPL_BATCH))
+    finally:
+        dc.fused_decode_composite = kernel
+        metric_utils.get_feature_extractor = extractor
+        os.environ.pop("PIX2PIX3D_INCEPTION_NPZ", None)
+    launches = counts.by_path["decode_composite"]["metrics"]
+    forwards = calls["forward"] + calls["synthesis"]
+    if launches != forwards or counts.by_path["late_separate_decode"]["metrics"]:
+        raise AssertionError(f"metrics: decode_composite launched {launches} times in "
+                             f"{forwards} generator forwards (one each expected), "
+                             "late_separate_decode "
+                             f"{counts.by_path['late_separate_decode']['metrics']}")
+    log(f"metrics: decode_composite launches {launches} = generator forwards "
+        f"{calls['forward']} + PPL syntheses {calls['synthesis']}")
+
+    # decode_composite against its plain version on a batch-8 call's inputs
+    a, kw = captured[0]
+    args = tuple(a)
+    if args[0].shape[1] != METRIC_BATCH:
+        raise AssertionError(f"captured feats {tuple(args[0].shape)}: N != {METRIC_BATCH}")
+    check_block_diagonal(args[5], transposed=True)
+    tol, rms_tol = TOL[args[0].dtype]
+    with torch.no_grad(), precision.policy(False):
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        want = dc.decode_composite_plain(*args, **kw)
+        max_abs, _, used, rms = compare(got, want, tol, rms_tol)
+        kc_ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+        targs = kernel_typed(args)
+        k_ms = device_ms(lambda: kernel(*targs, **kw), 10)
+        pc_ms = cuda_ms(lambda: dc.decode_composite_plain(*args, **kw), 3)
+        p_ms = device_ms(lambda: dc.decode_composite_plain(*args, **kw), 3)
+        libc_ms, lib_ms = library_ms(args, 10)
+    b_ms, b_by, terms = bound(args, kw["sem_sigmoid"], sfu_per_s)
+    log(f"metrics decode_composite at N={METRIC_BATCH}: feats {tuple(args[0].shape)} "
+        f"{args[0].dtype}, {kw}: max abs {max_abs:.3e} ({used:.3f} of tol {tol}), RMS "
+        f"{rms:.3e} (tol {rms_tol}); device ms: kernel {k_ms:.4f}, plain {p_ms:.4f}, "
+        f"torch.matmul {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}); call ms: kernel "
+        f"{kc_ms:.4f}, plain {pc_ms:.4f}, torch.matmul {libc_ms:.4f} [{card}]")
+    del captured, args, targs, got, want
+
+    # one metric batch's forward under the profiler: busy, idle share, stages
+    from pix2pix3d_tpu_torch.models.triplane import STAGES
+    opts = metric_utils.MetricOptions(G=G, dataset=ds, device=device)
+    z, mask, pose = metric_utils.sample_inputs(opts, *metric_utils.seeded(opts),
+                                               METRIC_BATCH)
+
+    def forward():
+        with torch.no_grad(), precision.policy(True):
+            return G(z, pose, {"mask": mask, "pose": pose}, noise_mode="const", det=True)
+    log(f"metrics: one batch-{METRIC_BATCH} forward under the profiler [{card}]")
+    profile_request(forward, STAGES)
+
+    # the fused render against decoder_impl=None on that batch, as served
+    rk = G.rendering_kwargs
+    sems = {}
+    with torch.no_grad(), precision.policy(True):
+        ws = G.mapping(z, pose, {"mask": mask, "pose": pose})
+        for impl in ("kernel", None):
+            rk["decoder_impl"] = impl
+            sems[impl] = G.synthesis(ws, pose, noise_mode="const", det=True)["semantic"]
+    rk["decoder_impl"] = "kernel"
+    fused, plain = sems["kernel"].float(), sems[None].float()
+    agree = float((fused.argmax(-1) == plain.argmax(-1)).float().mean())
+    top2 = plain.topk(2, dim=-1).values
+    err = float((fused - plain).abs().max())
+    near = float(((top2[..., 0] - top2[..., 1]) <= err).float().mean())
+    log(f"metrics fused vs decoder_impl=None (as served, batch {METRIC_BATCH}): argmax "
+        f"agreement {agree:.6f} (floor {ARGMAX_AGREE}); semantic logits max abs "
+        f"{err:.3e} of largest {float(plain.abs().max()):.3f}; share of pixels whose "
+        f"top two unfused logits are within that {near:.6f} [{card}]")
+    if agree < ARGMAX_AGREE:
+        raise AssertionError(f"fused vs unfused argmax agreement {agree:.6f} < "
+                             f"{ARGMAX_AGREE}")
+    del G, sems, fused, plain
+    torch.cuda.empty_cache()
+    phase_done("metrics", t0)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -2678,8 +2932,10 @@ def main():
         # ---- 22.-27. the other generators of the registries
         phase_eg3d(device, card, counts, folder, tmp)
         phase_seg2cat_bg(device, card, counts, folder, tmp)
-    phase_other_generators(device, card, counts)
-    phase_dual_sr(device, card, counts)
+        phase_other_generators(device, card, counts)
+        phase_dual_sr(device, card, counts)
+        # ---- 28. the metrics package through the serving generator
+        phase_metrics(device, card, counts, folder, tmp, sfu_per_s, request_ms)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

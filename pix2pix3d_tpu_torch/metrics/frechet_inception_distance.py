@@ -1,16 +1,18 @@
-"""Frechet distance math, part of a port of
-`pix2pix3d_tpu/metrics/frechet_inception_distance.py` (ref
-`metrics/frechet_inception_distance.py:22-43`), in numpy.
+"""FID, port of `pix2pix3d_tpu/metrics/frechet_inception_distance.py` (ref
+`metrics/frechet_inception_distance.py:22-43`); the math in numpy.
 
 FD = |mu_1 - mu_2|^2 + Tr(C_1 + C_2 - 2 sqrt(C_1 C_2)); the matrix square
-root through eigendecompositions of symmetric matrices (no scipy).  The
-FID metric itself (Inception features of a dataset and of the generator)
-is ROADMAP.md Queue 1 item 7.
+root through eigendecompositions of symmetric matrices (no scipy).
+`compute_fid` takes the features of the dataset's images and of the
+generator's samples from `metric_utils.get_feature_extractor` (Inception-v3
+with `PIX2PIX3D_INCEPTION_NPZ`, else the random-convolution proxy).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import metric_utils
 
 
 def _sqrtm_product_trace(c1, c2):
@@ -50,3 +52,12 @@ def frechet_lowrank(f1, f2):
     ev = np.linalg.eigvals(cross @ cross.T)
     tr_sqrt = np.sqrt(np.clip(np.real(ev), 0, None)).sum()
     return float(m + tr1 + tr2 - 2 * tr_sqrt)
+
+
+def compute_fid(opts, max_real, num_gen):
+    detector = metric_utils.get_feature_extractor(opts.device)
+    real = metric_utils.iterate_real_features(opts, detector, max_items=max_real)
+    gen = metric_utils.iterate_gen_features(opts, detector, max_items=num_gen)
+    mu_r, cov_r = real.get_mean_cov()
+    mu_g, cov_g = gen.get_mean_cov()
+    return frechet_distance(mu_g, cov_g, mu_r, cov_r)

@@ -303,8 +303,7 @@ class _TriPlaneBase(nn.Module):
         if rk.get("frustum_tiles") is not None:
             raise NotImplementedError(
                 "rendering_kwargs['frustum_tiles'] (per-output-tile "
-                "sub-windows) is not ported yet: ROADMAP.md Queue 1, "
-                "'Frustum leftovers'")
+                "sub-windows) is not ported yet: ROADMAP.md Queue 1 item 7")
         impl = rk.get("decoder_impl")
         if impl not in DECODER_IMPLS:
             raise ValueError(f"rendering_kwargs['decoder_impl'] {impl!r} is not "

@@ -34,7 +34,7 @@ from .. import config as cfg_mod
 from .dataset import build_dataset
 
 # the ROADMAP item of multi-card training, not ported yet
-TRAINING_ITEM = "ROADMAP.md Queue 1 item 5"
+TRAINING_ITEM = "ROADMAP.md Queue 1 item 4"
 
 
 def parse_bool(v):

@@ -351,7 +351,7 @@ def test_released_config_forward_matches_jax(name):
 
 def test_unported_configs_raise():
     """What the apps' generator still refuses: per-output-tile frustum
-    sub-windows (ROADMAP Queue 1, frustum leftovers).  The entangled
+    sub-windows (ROADMAP Queue 1 item 7).  The entangled
     mappings and 256² that this test once refused build now and meet JAX
     (`test_formerly_unported_configs_match_jax`)."""
     cfg = _small_cfg(tconfig)

@@ -157,15 +157,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_import_rules_cover_the_trainer():
-    """The trainer's modules, its CLI and the metrics it uses are among the
-    sources the two import checks read."""
+    """The trainer's modules, its CLI, every module of the metrics package
+    and the profiling helpers are among the sources the two import checks
+    read."""
     sources = set(_port_sources())
     for name in ("trainer", "loss", "loop", "dataset", "native_loader", "lpips",
                  "stats", "ema", "checkpoint", "viz", "__main__", "augment", "tb",
                  "wandb_sink"):
         assert PORT / "train" / f"{name}.py" in sources, name
-    assert PORT / "utils" / "png.py" in sources
-    for name in ("metric_utils", "frechet_inception_distance"):
+    for name in ("png", "profiling"):
+        assert PORT / "utils" / f"{name}.py" in sources, name
+    for name in ("metric_utils", "frechet_inception_distance", "miou", "inception",
+                 "kernel_inception_distance", "precision_recall", "inception_score",
+                 "perceptual_path_length", "metric_main"):
         assert PORT / "metrics" / f"{name}.py" in sources, name
 
 

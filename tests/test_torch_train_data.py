@@ -147,7 +147,7 @@ def test_cli_refuses_the_deferred_flags(folder, tmp_path, flags, what):
     argv = ["--outdir", str(tmp_path), "--cfg", "afhq", "--data", folder["imgs"],
             "--mask_data", folder["masks"], "--batch", "2", "--gamma", "5",
             "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5") as e:
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4") as e:
         tcli.main(argv)
     assert what in str(e.value)
     assert not list(tmp_path.iterdir())

@@ -167,9 +167,10 @@ def test_own_proxy_is_seeded_and_refuses_inception(monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(a.kernels + [a.proj], b.kernels + [b.proj]))
     assert [tuple(k.shape) for k in a.kernels] == [(32, 3, 3, 3), (64, 32, 3, 3),
                                                    (128, 64, 3, 3), (256, 128, 3, 3)]
+    # a variable that names no file leaves the proxy, as in the JAX package
+    # (tests/test_torch_inception.py loads a file it names)
     monkeypatch.setenv("PIX2PIX3D_INCEPTION_NPZ", "/nonexistent.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        tmu.get_feature_extractor("cpu")
+    assert isinstance(tmu.get_feature_extractor("cpu"), tmu.RandomConvFeatures)
 
 
 def test_fd_trend_matches_jax_on_jax_weights(jax_proxy, monkeypatch):
