@@ -222,6 +222,29 @@ time and the generator's parameter count; their paths join
                the pixels had their top two unfused logits within the
                renders' largest logit difference);
                that batch's forward under the profiler (idle share, stages).
+29. train-ddp -- data-parallel training over `torch.distributed`.  (a) The
+               seg2cat recipe at full width, batch 4: a trainer over a
+               world-1 NCCL group and the plain trainer from the same state
+               run 3 steps (step 0 with every phase) on the same inputs and
+               generator states under deterministic algorithms: equal bit
+               for bit after each (parameters, buffers, Adam moments and
+               steps, stats); each step's ms, two alternating steps of each
+               with default algorithms, peak memory; one group step under
+               the profiler (device activity: idle share, the NCCL kernels'
+               device ms) and one all-reduce of each network's flat
+               gradient timed alone, with its bytes.  (b) Two processes
+               (`multihost.spawn_ranks`) on the one card over gloo with CUDA
+               tensors (NCCL refuses two ranks on one device) run
+               `training_loop` at a small width on a 128^2 folder, global
+               batch 4, 2 steps: both ranks' states, stats and checksums
+               equal bit for bit; stats.jsonl holds one tick (rank 0
+               alone writes); rank 0's network-final.ckpt loads into a
+               world-1 trainer equal to its state bit for bit, and one more
+               step from it is finite.  (c) `python -m
+               pix2pix3d_tpu_torch.train` on the card at that width: its
+               launcher spawns one rank, 2 steps, exit 0, stats.jsonl and
+               the checkpoint written.  Neither kernel launches on (a)'s
+               path.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -1208,12 +1231,13 @@ def cuda_generator(state):
     return gen
 
 
-def deterministic_steps(trainers, inputs, gen_state, kw):
+def deterministic_steps(trainers, inputs, gen_state, kw, times=None):
     """One `Trainer.step` on each trainer, from the same inputs and
     generator state, under PyTorch's deterministic algorithms (cuDNN's
     deterministic ones, the gathers' backward without atomics); returns
     (their stats, the ops PyTorch flagged as having no deterministic
-    version), restoring the settings."""
+    version), restoring the settings.  With `times`, each step's wall ms
+    (the card synchronized around it) is appended to it."""
     import warnings
 
     old = (torch.are_deterministic_algorithms_enabled(),
@@ -1228,7 +1252,13 @@ def deterministic_steps(trainers, inputs, gen_state, kw):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             for tr in trainers:
-                stats.append(tr.step(*inputs, cuda_generator(gen_state), **kw))
+                gen = cuda_generator(gen_state)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                stats.append(tr.step(*inputs, gen, **kw))
+                torch.cuda.synchronize()
+                if times is not None:
+                    times.append((time.perf_counter() - t1) * 1e3)
     finally:
         torch.use_deterministic_algorithms(old[0], warn_only=old[1])
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[2:4]
@@ -2517,6 +2547,332 @@ def phase_metrics(device, card, counts, folder, tmp, sfu_per_s, request_ms):
     phase_done("metrics", t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 29: data-parallel training over torch.distributed
+
+# (b) and (c): the CLI's small width (tests/test_torch_train_checkpoint.py's
+# recipe run) on a folder of DDP_IMAGES 128^2 images, DDP_STEPS steps at the
+# recipe's global batch 4
+DDP_SMALL_FLAGS = ["--cbase", "512", "--cmax", "16", "--mbstd-group", "2",
+                   "--neural_rendering_resolution_initial", "16"]
+DDP_IMAGES = 8
+DDP_STEPS = 2
+# a spawned rank or the CLI's run gives up after this long
+DDP_TIMEOUT_S = 300
+
+
+def states_differ(a, b):
+    """The tensors that differ in their bits between two trainers:
+    parameters, buffers, Adam moments and steps."""
+    out = []
+    for key, (ma, oa) in a.networks().items():
+        mb, ob = b.networks()[key]
+        sb = mb.state_dict()
+        out += [f"{key}.{k}" for k, v in ma.state_dict().items() if not torch.equal(v, sb[k])]
+        if oa is not None:
+            for (n, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+                sa, sb_ = oa.state.get(pa, {}), ob.state.get(pb, {})
+                out += [f"opt_{key}.{n}.{k}" for k in ("exp_avg", "exp_avg_sq", "step")
+                        if (k in sa) != (k in sb_) or (k in sa and not torch.equal(
+                            sa[k], sb_[k]))]
+    return out
+
+
+def ddp_rank(rank, coordinator, argv, out):
+    """Phase 29 (b): rank `rank` of two on the one card, over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device): the CLI's run config of
+    `argv` through `training_loop` with the world group; writes its state
+    tree, stats, step times and checksum to `out/rank<rank>.pt`."""
+    import datetime
+    import torch.distributed as dist
+    from pix2pix3d_tpu_torch.parallel.multihost import initialize_multihost
+    from pix2pix3d_tpu_torch.train import __main__ as cli
+    from pix2pix3d_tpu_torch.train.loop import training_loop
+    from pix2pix3d_tpu_torch.train.trainer import Trainer
+
+    group = initialize_multihost(coordinator, 2, rank, device="cuda:0", backend="gloo",
+                                 timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    conf = cli.run_config(cli.parser().parse_args(argv))
+    rec = {"ms": [], "stats": []}
+
+    def step_fn(trainer, *args, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = Trainer.step(trainer, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["stats"].append(stats)
+        return stats
+
+    try:
+        trainer = training_loop(run_dir=os.path.join(out, "run"), step_fn=step_fn,
+                                process_group=group, **conf)
+        torch.save({"state": trainer.state_tree(), "rec": rec,
+                    "checksum": int(trainer.replica_checksum())},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_ddp(device, card, counts, folder, tmp):
+    """Phase 29: (a) the seg2cat recipe at full width through a world-1
+    NCCL group against the plain trainer, bit for bit; (b) two ranks on the
+    card over gloo at a small width through `training_loop`, replicas bit
+    for bit, rank 0's outputs alone, its checkpoint resumed at world 1; (c)
+    the CLI through its spawn launcher at world 1."""
+    t0 = time.time()
+    ddp_world_one(device, card, counts, folder, tmp)
+    small, small_argv = ddp_world_two(device, card, tmp)
+    ddp_cli(card, small, small_argv)
+    phase_done("train-ddp", t0)
+
+
+def ddp_world_one(device, card, counts, folder, tmp):
+    """Phase 29 (a): world 1 over NCCL at full width against the plain
+    trainer."""
+    import datetime
+    import torch.distributed as dist
+    from pix2pix3d_tpu_torch.parallel.multihost import all_reduce_sum_, free_port
+    from pix2pix3d_tpu_torch.parallel.trainer import reduce_gradients
+    from pix2pix3d_tpu_torch.train import __main__ as cli
+    from pix2pix3d_tpu_torch.train.dataset import DataLoader, build_dataset
+    from pix2pix3d_tpu_torch.train.loop import build_training, to_device
+
+    imgs, masks = folder
+    argv = ["--outdir", os.path.join(tmp, "ddp"), "--data", imgs,
+            "--mask_data", masks] + RECIPE_FLAGS
+    conf = cli.run_config(cli.parser().parse_args(argv))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    group = dist.group.WORLD
+    try:
+        kw = dict(d_kwargs=conf["d_kwargs"], loss_kwargs=conf["loss_kwargs"],
+                  device=device, random_seed=0)
+        plain = build_training(conf["g_config"], 25, **kw)
+        ddp = build_training(conf["g_config"], 25, process_group=group, **kw)
+        differ = states_differ(plain, ddp)
+        if differ:
+            raise AssertionError(f"train-ddp: the trainers start apart: {differ[:5]}")
+        ds = build_dataset(**conf["dataset_kwargs"])
+        loader = DataLoader(ds, batch_size=4, seed=0)
+        rng = np.random.RandomState(0)
+        gen = torch.Generator(device=device).manual_seed(7)
+        step_kw = dict(batch_size=4, ema_kimg=4 * 10 / 32)
+        times, flagged_all = [], set()
+        torch.cuda.reset_peak_memory_stats()
+
+        def inputs():
+            batch = to_device(next(loader), device)
+            gen_z = torch.randn((4, 4, 512), generator=gen, device=device)
+            gen_c = torch.from_numpy(np.stack([ds.get_label(i) for i in rng.randint(
+                len(ds), size=16)]).reshape(4, 4, -1).astype(np.float32)).to(device)
+            return batch, gen_z, gen_c
+
+        def run():
+            for i in range(3):
+                args = inputs()
+                state = torch.Generator(device=device).manual_seed(100 + i).get_state()
+                (s_plain, s_ddp), flagged = deterministic_steps(
+                    (plain, ddp), args, state, dict(step_kw, step_idx=i, cur_nimg=4 * i),
+                    times)
+                flagged_all.update(flagged)
+                same = set(s_plain) == set(s_ddp) and all(
+                    np.array_equal(s_plain[k], s_ddp[k]) for k in s_plain)
+                differ = states_differ(plain, ddp)
+                if differ or not same:
+                    raise AssertionError(f"train-ddp step {i}: the world-1 group's step "
+                                         f"differs from the plain one: stats equal "
+                                         f"{same}; tensors apart {differ[:5]} "
+                                         f"({len(differ)})")
+            return args
+
+        try:
+            args = counts.run("train-ddp", run)
+        finally:
+            loader.close()
+        for name, by_path in counts.by_path.items():
+            if by_path["train-ddp"]:
+                raise AssertionError(f"train-ddp launched {name} {by_path['train-ddp']} "
+                                     "times")
+        peak = torch.cuda.max_memory_allocated()
+        plain_ms, ddp_ms = times[0::2], times[1::2]
+        log(f"train-ddp (a): 3 steps (step 0 with every phase) of the seg2cat recipe "
+            f"at full width, batch 4, through a world-1 NCCL group equal the plain "
+            f"trainer's bit for bit (parameters, buffers, Adam moments and steps, "
+            f"stats), both under deterministic algorithms (flagged: "
+            f"{sorted(flagged_all) or 'none'}); step ms plain "
+            + ", ".join(f"{m:.1f}" for m in plain_ms) + ", group "
+            + ", ".join(f"{m:.1f}" for m in ddp_ms) + f"; steps 1-2 median plain "
+            f"{statistics.median(plain_ms[1:]):.1f}, group "
+            f"{statistics.median(ddp_ms[1:]):.1f} ms; peak max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        # default algorithms: two steps each without the reg phases, alternating
+        normal = {"plain": [], "group": []}
+        for _ in range(2):
+            for name, tr in (("plain", plain), ("group", ddp)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tr.step(*args, cuda_generator(gen.get_state()),
+                        **dict(step_kw, step_idx=5, cur_nimg=20))
+                torch.cuda.synchronize()
+                normal[name].append((time.perf_counter() - t1) * 1e3)
+        log("train-ddp (a): steps without the reg phases, default algorithms, "
+            "alternating: plain " + ", ".join(f"{m:.1f}" for m in normal["plain"])
+            + " ms, group " + ", ".join(f"{m:.1f}" for m in normal["group"])
+            + f" ms [{card}]")
+        # the in-step collectives: the NCCL kernels of one step (device only)
+        del plain
+        torch.cuda.empty_cache()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            ddp.step(*args, cuda_generator(gen.get_state()),
+                     **dict(step_kw, step_idx=5, cur_nimg=20))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        if busy == 0:
+            raise AssertionError("train-ddp: the profiler recorded no device time")
+        # at one rank NCCL's all-reduce launches no kernel (in place, it has
+        # nothing to copy); what the group adds is the flat buffer's copies
+        nccl = [e for e in events if "nccl" in e.key.lower()]
+        log(f"train-ddp (a): a group step without the reg phases under the profiler "
+            f"(device activity): wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
+            f"share {1 - busy / wall:.3f}; NCCL kernels "
+            f"{sum(e.self_device_time_total for e in nccl) / 1e3:.3f} ms in "
+            f"{sum(e.count for e in nccl)} launches [{card}]")
+        total = 0
+        for name, (module, opt) in ddp.networks().items():
+            if opt is None:
+                continue
+            grads = [torch.randn_like(p) for p in module.parameters()]
+            n = sum(g.numel() for g in grads)
+            total += n
+            buf = torch.zeros(n, device=device)
+            ar_ms = cuda_ms(lambda: all_reduce_sum_(buf, group), 5)
+            red_ms = cuda_ms(lambda: reduce_gradients(grads, 1.0, group), 5)
+            log(f"train-ddp (a): {name}'s phase gradient, {n:,} f32 "
+                f"({4 * n / 1e6:.1f} MB), world 1 NCCL: one all-reduce of the flat "
+                f"buffer {ar_ms:.4f} ms; the whole reduction (flatten, x gain, "
+                f"all-reduce, / world, nan_to_num, views; `allreduce_<phase>`) "
+                f"{red_ms:.4f} ms [{card}]")
+            del grads, buf
+        log(f"train-ddp (a): f32 gradients reduced per step: {4 * total / 1e6:.1f} MB "
+            f"without the reg phases (G, D, D_semantic once each); the reg phases "
+            f"reduce each network once more [{card}]")
+        del ddp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_world_two(device, card, tmp):
+    """Phase 29 (b): world 2 on the one card over gloo, through
+    `training_loop`; returns the small folder and the CLI flags it ran."""
+    from pix2pix3d_tpu_torch.parallel.multihost import free_port, spawn_ranks
+    from pix2pix3d_tpu_torch.train import __main__ as cli
+    from pix2pix3d_tpu_torch.train.checkpoint import load_checkpoint
+    from pix2pix3d_tpu_torch.train.dataset import DataLoader, build_dataset
+    from pix2pix3d_tpu_torch.train.loop import build_training, to_device
+
+    small = os.path.join(tmp, "ddp-small")
+    os.makedirs(small)
+    s_imgs, s_masks = write_training_folder(small, DDP_IMAGES, res=128)
+    small_argv = (["--data", s_imgs, "--mask_data", s_masks] + RECIPE_FLAGS
+                  + DDP_SMALL_FLAGS + ["--kimg", str(4 * DDP_STEPS / 1e3), "--tick",
+                                       str(4 * DDP_STEPS / 1e3), "--snap", "1"])
+    out = os.path.join(small, "world2")
+    argv = ["--outdir", out] + small_argv
+    t1 = time.perf_counter()
+    spawn_ranks(ddp_rank, 2, f"localhost:{free_port()}", argv, out)
+    t_spawn = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    leaves = [dict(_tree_leaves(r["state"])) for r in ranks]
+    apart = [k for k in leaves[0] if not np.array_equal(leaves[0][k], leaves[1][k])]
+    stats_apart = [k for s0, s1 in zip(ranks[0]["rec"]["stats"], ranks[1]["rec"]["stats"])
+                   for k in s0 if not np.array_equal(s0[k], s1[k])]
+    if (apart or stats_apart or set(leaves[0]) != set(leaves[1])
+            or ranks[0]["checksum"] != ranks[1]["checksum"]):
+        raise AssertionError(f"train-ddp (b): the ranks' states differ: {apart[:5]} "
+                             f"({len(apart)}), stats {stats_apart[:5]}")
+    run_dir = os.path.join(out, "run")
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f]
+    files = sorted(os.listdir(run_dir))
+    if len(ticks) != 1 or "network-final.ckpt" not in files:
+        raise AssertionError(f"train-ddp (b): stats.jsonl holds {len(ticks)} ticks "
+                             f"(rank 0 alone writes one); files {files}")
+    if len(ranks[0]["rec"]["ms"]) != DDP_STEPS:
+        raise AssertionError(f"train-ddp (b): {len(ranks[0]['rec']['ms'])} steps ran")
+    # rank 0's checkpoint resumes at world 1
+    conf = cli.run_config(cli.parser().parse_args(argv))
+    single = build_training(conf["g_config"], 25, d_kwargs=conf["d_kwargs"],
+                            loss_kwargs=conf["loss_kwargs"], device=device,
+                            random_seed=5)
+    tree, step = load_checkpoint(os.path.join(run_dir, "network-final.ckpt"),
+                                 single.state_tree())
+    single.load_state_tree(tree)
+    resumed = dict(_tree_leaves(single.state_tree()))
+    off = [k for k in leaves[0] if not np.array_equal(resumed[k], leaves[0][k])]
+    if off or step != 4 * DDP_STEPS:
+        raise AssertionError(f"train-ddp (b): the world-1 resume differs from rank 0's "
+                             f"state: {off[:5]} ({len(off)}), step {step}")
+    ds = build_dataset(**conf["dataset_kwargs"])
+    loader = DataLoader(ds, batch_size=4, seed=1)
+    batch = to_device(next(loader), device)
+    loader.close()
+    gen = torch.Generator(device=device).manual_seed(3)
+    stats = single.step(batch, torch.randn((4, 4, 512), generator=gen, device=device),
+                        batch["pose"][None].expand(4, -1, -1).contiguous(), gen,
+                        step_idx=DDP_STEPS, cur_nimg=step, batch_size=4)
+    if not all(np.isfinite(v).all() for v in stats.values()):
+        raise AssertionError("train-ddp (b): the resumed step's stats are not finite")
+    del single
+    torch.cuda.empty_cache()
+    log(f"train-ddp (b): 2 ranks on one card over gloo (CUDA tensors), small width, "
+        f"global batch 4 (2 a rank), {DDP_STEPS} steps through training_loop in "
+        f"{t_spawn:.1f} s (spawn, start-up and snapshot included): rank 0 and rank 1 "
+        f"equal bit for bit ({len(leaves[0])} state leaves, stats, checksum); step ms "
+        "rank 0 " + ", ".join(f"{m:.1f}" for m in ranks[0]["rec"]["ms"]) + ", rank 1 "
+        + ", ".join(f"{m:.1f}" for m in ranks[1]["rec"]["ms"]) + " (two processes "
+        f"sharing one card: not a scaling number); stats.jsonl one tick (rank 0's); "
+        f"network-final.ckpt resumed at world 1 equal to rank 0's state bit for bit, "
+        f"and one more step from it finite [{card}]")
+    return small, small_argv
+
+
+def ddp_cli(card, small, small_argv):
+    """Phase 29 (c): the CLI through its spawn launcher at world 1."""
+    cli_out = os.path.join(small, "cli")
+    t1 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "pix2pix3d_tpu_torch.train",
+                             "--outdir", cli_out] + small_argv,
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        text, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_cli = time.perf_counter() - t1
+    runs = os.listdir(cli_out) if os.path.isdir(cli_out) else []
+    files = set(os.listdir(os.path.join(cli_out, runs[0]))) if len(runs) == 1 else set()
+    if proc.returncode != 0 or not {"stats.jsonl", "network-final.ckpt"} <= files:
+        raise AssertionError(f"train-ddp (c): the CLI exited {proc.returncode}, files "
+                             f"{sorted(files)}; its output ends:\n{text[-3000:]}")
+    steps = [line for line in text.splitlines() if line.startswith("step ")]
+    log(f"train-ddp (c): python -m pix2pix3d_tpu_torch.train on the card (one rank "
+        f"spawned) ran {len(steps)} steps in {t_cli:.1f} s, exit 0; "
+        f"{' | '.join(steps)} [{card}]")
+    if len(steps) != DDP_STEPS:
+        raise AssertionError(f"train-ddp (c): {len(steps)} steps, not {DDP_STEPS}")
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -2936,6 +3292,8 @@ def main():
         phase_dual_sr(device, card, counts)
         # ---- 28. the metrics package through the serving generator
         phase_metrics(device, card, counts, folder, tmp, sfu_per_s, request_ms)
+        # ---- 29. data-parallel training over torch.distributed
+        phase_train_ddp(device, card, counts, folder, tmp)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

@@ -9,10 +9,16 @@ flag (ref `train.py:181-534`), e.g. the seg2cat recipe
         --random_c_prob=0.5 --lambda_d_semantic=0.1 --lambda_lpips=1 \\
         --lambda_cross_view=1e-4 --only_raw_recons=True
 
-It trains on one card (`--device cuda`, the default; raises without one) or
-on the CPU with `--device cpu`.  Every flag of `train.py` runs but
-`--num-nodes` above 1 (multi-card training), which raises
-`NotImplementedError` naming its ROADMAP item: every generator the flags
+On `--device cuda` (the default; raises without a card) it spawns one
+training process per visible card (`torch.multiprocessing.spawn`, as the
+reference's `train.py:33-113`), data-parallel over NCCL; with `--num-nodes
+N --node-rank i --coordinator host:port` the world spans N such nodes
+(world size N x cards per node, global rank i x cards per node + local
+rank; `parallel/multihost.py`).  With `--device cpu` each node is one
+process (gloo between nodes).  A rank that raises ends the run with a
+non-zero exit: the launcher stops the node's other ranks and raises, and
+ranks on other nodes give up after the group's timeout.  Every flag of
+`train.py` runs: every generator the flags
 select (train.py's defaults `--render_mask False --dis_mask False` train
 the conditional EG3D `TriPlaneGenerator` without D_semantic; `--use_bg
 True` the background-plane generator, with `--silhouette_loss True` its
@@ -30,11 +36,13 @@ import json
 import os
 import re
 
-from .. import config as cfg_mod
-from .dataset import build_dataset
+import torch
 
-# the ROADMAP item of multi-card training, not ported yet
-TRAINING_ITEM = "ROADMAP.md Queue 1 item 4"
+from .. import config as cfg_mod
+from .. import resolve_device
+from ..parallel.multihost import (free_port, local_batch_slice, spawn_ranks,
+                                  world_layout)
+from .dataset import build_dataset
 
 
 def parse_bool(v):
@@ -125,11 +133,27 @@ def parser():
     return p
 
 
-def check_deferred(args):
-    """Refuse the flags of parts of the JAX trainer not ported yet."""
-    if args.num_nodes > 1:
-        raise NotImplementedError("--num-nodes > 1 (multi-card training) is not "
-                                  f"ported yet: {TRAINING_ITEM}")
+def local_ranks(device):
+    """Training processes on this node: one per visible card for `cuda`
+    without an index, else one."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.cuda.device_count()
+    return 1
+
+
+def check_ranks(args, local):
+    """(this node's rank, world size) of `--num-nodes`/`--node-rank` with
+    `local` ranks a node; raises for a missing or inconsistent flag."""
+    node_rank = 0 if args.node_rank is None and args.num_nodes == 1 else args.node_rank
+    if node_rank is None:
+        raise ValueError("--num-nodes above 1 needs --node-rank")
+    _, world = world_layout(args.num_nodes, node_rank, local, 0)
+    if args.num_nodes > 1 and args.coordinator is None:
+        raise ValueError("--num-nodes above 1 needs --coordinator host:port "
+                         "(node 0's address)")
+    local_batch_slice(args.batch, 0, world)   # raises unless the batch divides
+    return node_rank, world
 
 
 def run_config(args):
@@ -216,9 +240,9 @@ def run_config(args):
 
 def main(argv=None, step_fn=None):
     """Parse `argv` (default: the command line), train, return the run
-    directory.  `step_fn` is handed to `training_loop` (instrumentation)."""
+    directory.  `step_fn` is handed to `training_loop` (instrumentation; it
+    runs the one rank of a world of one in this process)."""
     args = parser().parse_args(argv)
-    check_deferred(args)
     config = run_config(args)
 
     desc = (f"{args.cfg}-{os.path.basename(args.data).split('.')[0]}"
@@ -232,12 +256,22 @@ def main(argv=None, step_fn=None):
     if args.dry_run:
         print("Dry run; exiting.")
         return run_dir
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump({k: str(v) for k, v in config.items()}, f, indent=2)
+    local = local_ranks(args.device)
+    node_rank, _ = check_ranks(args, local)
+    if node_rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            json.dump({k: str(v) for k, v in config.items()}, f, indent=2)
 
-    from .loop import training_loop
-    training_loop(run_dir=run_dir, step_fn=step_fn, **config)
+    from .loop import train_rank
+    coordinator = args.coordinator or f"localhost:{free_port()}"
+    spawn = resolve_device(args.device).type == "cuda" and step_fn is None
+    if not spawn:
+        if local != 1 and step_fn is not None:
+            raise ValueError("step_fn runs in this process: one rank a node")
+        train_rank(0, args, config, run_dir, local, coordinator, step_fn)
+    else:
+        spawn_ranks(train_rank, local, args, config, run_dir, local, coordinator)
     return run_dir
 
 

@@ -348,12 +348,19 @@ def normalize_batch(samples, data_type):
 
 class DataLoader:
     """Thread-prefetched infinite batch iterator.  A failure in the worker
-    thread is raised by the next `next()`; `close()` stops the thread."""
+    thread is raised by the next `next()`; `close()` stops the thread.
+
+    `rows=(start, stop)`: each batch of `batch_size` indices is drawn in
+    full, and only its rows [start, stop) are read and yielded (a
+    data-parallel rank's share of the global batch; the first batch in full
+    with `full_first`, for the snapshot grid)."""
 
     def __init__(self, dataset, batch_size, rank=0, num_replicas=1, seed=0,
-                 prefetch=4):
+                 prefetch=4, rows=None, full_first=False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = (0, batch_size) if rows is None else rows
+        self.full_first = full_first
         self.sampler = InfiniteSampler(len(dataset), rank=rank,
                                        num_replicas=num_replicas, seed=seed)
         self._queue = queue.Queue(maxsize=prefetch)
@@ -372,10 +379,12 @@ class DataLoader:
 
     def _worker(self):
         it = iter(self.sampler)
+        rows = (0, self.batch_size) if self.full_first else self.rows
         try:
             while not self._stop.is_set():
-                samples = [self.dataset[int(next(it))]
-                           for _ in range(self.batch_size)]
+                idx = [int(next(it)) for _ in range(self.batch_size)]
+                samples = [self.dataset[i] for i in idx[rows[0]:rows[1]]]
+                rows = self.rows
                 if not self._put(normalize_batch(samples, self.dataset.data_type)):
                     return
         except BaseException as e:  # handed to the consumer, which raises it

@@ -1,5 +1,6 @@
 """Host-side training loop, port of `pix2pix3d_tpu/train/loop.py` (ref
-`training/training_loop.py:230-800`) on one card.
+`training/training_loop.py:230-800`) on one card or, with a process group,
+on one rank of several (one process per card).
 
 Tick cadence, `stats.jsonl`, the TensorBoard event file and the optional
 wandb sink, `reals.png`/`mask.png`/fakes grids, network snapshots (the JAX
@@ -24,6 +25,22 @@ Randomness: the per-step latents and every draw of a step come from one
 `torch.Generator` on the card seeded with `random_seed * 1000 + 7`, the
 per-step poses from `np.random.RandomState(random_seed)` over the dataset's
 labels, the networks from `torch.Generator().manual_seed(random_seed)`.
+
+Data parallelism (`process_group`, world size N > 1; JAX `loop.py:83-86`
+and its trainer's `in_specs`): the global batch must divide over the
+ranks.  Every rank draws the global batch indices, latents and poses from
+the same seeded generators and keeps its share: rows [start, stop) of the
+batch (`multihost.local_batch_slice`; only those images are read) and the
+same columns of the per-phase latents and poses.  The draws inside a step
+come from a generator of each rank's own, seeded from the seed and the rank
+(`step_seed`; JAX folds the step key with the device index); at world size
+1 that generator is the shared one, as above.  `--batch-gpu` gives the
+accumulation rounds of each rank's share (JAX `per_device // batch_gpu`).
+The step returns the stats summed over the ranks, so ADA's p, the ticks and
+`done` agree on every rank.  Rank 0 alone writes stats.jsonl, TensorBoard,
+wandb, the grids, quality.jsonl and the checkpoints (a barrier before and
+after each checkpoint; the format is unchanged, so a checkpoint of any
+world size resumes at any other).
 """
 
 from __future__ import annotations
@@ -42,6 +59,8 @@ from ..ops import precision
 from ..render.camera import LookAtPoseSampler, pose_to_conditioning
 from ..metrics.frechet_inception_distance import frechet_lowrank
 from ..metrics.metric_utils import get_feature_extractor
+from ..parallel.multihost import (all_reduce_max_, barrier, initialize_multihost,
+                                  local_batch_slice, world_layout)
 from ..utils.misc import format_time
 from .augment import AugmentPipe, ada_update_p
 from .checkpoint import copy_params_fuzzy, load_checkpoint, save_checkpoint
@@ -58,10 +77,11 @@ from .wandb_sink import WandbSink
 def build_training(g_config, label_dim, d_kwargs=None, loss_kwargs=None,
                    use_d_semantic=True, augment_kwargs=None, lpips_weights=None,
                    g_lr=0.0025, d_lr=0.002, g_reg_interval=4, d_reg_interval=16,
-                   grad_accum_rounds=1, random_seed=0, device="cuda"):
+                   grad_accum_rounds=1, random_seed=0, device="cuda",
+                   process_group=None):
     """G (trainable), D, D_semantic, LPIPS, the augmentation pipe (with
-    `augment_kwargs`), the loss and the `Trainer`, with networks drawn from
-    `random_seed`, on `device`."""
+    `augment_kwargs`), the loss and the `Trainer` (over `process_group`),
+    with networks drawn from `random_seed`, on `device`."""
     device = resolve_device(device)
     g_config = dict(g_config)
     g_config.setdefault("c_dim", label_dim)
@@ -77,9 +97,16 @@ def build_training(g_config, label_dim, d_kwargs=None, loss_kwargs=None,
                          **(loss_kwargs or {}))
     trainer = Trainer(loss, g_lr=g_lr, d_lr=d_lr, g_reg_interval=g_reg_interval,
                       d_reg_interval=d_reg_interval,
-                      grad_accum_rounds=grad_accum_rounds)
+                      grad_accum_rounds=grad_accum_rounds,
+                      process_group=process_group)
     trainer.init_state(random_seed)
     return trainer
+
+
+def step_seed(random_seed, rank):
+    """The seed of rank `rank`'s in-step generator at world size > 1."""
+    return int(np.random.SeedSequence([random_seed * 1000 + 7, rank])
+               .generate_state(1, np.uint64)[0])
 
 
 def to_device(batch, device):
@@ -122,27 +149,38 @@ def training_loop(
     progress_fn=None,
     device="cuda",
     step_fn=None,
+    process_group=None,         # torch.distributed group; None = one card
 ):
     """Train and return the `Trainer` (networks, G_ema and optimizers).
 
     `step_fn`, if given, runs each step in place of `Trainer.step`, with
     its arguments and the trainer first, and returns the step's stats
-    (instrumentation: timing, profiling, a resume check)."""
+    (instrumentation: timing, profiling, a resume check).  With
+    `process_group`, this process is one rank of a data-parallel run on
+    `device` (module docstring)."""
     device = resolve_device(device)
     start_time = time.time()
-    os.makedirs(run_dir, exist_ok=True)
+    group = process_group
+    rank, world = (0, 1) if group is None else (group.rank(), group.size())
+    lead = rank == 0
+    start, stop = local_batch_slice(batch_size, rank, world)   # raises unless B % N == 0
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
     if ema_kimg is None:
         ema_kimg = batch_size * 10 / 32
 
     dataset = build_dataset(**dataset_kwargs)
-    loader = DataLoader(dataset, batch_size=batch_size, seed=random_seed)
-    rounds = 1 if batch_gpu is None else max(batch_size // batch_gpu, 1)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=random_seed,
+                        rows=(start, stop), full_first=lead)
+    per_rank = stop - start
+    rounds = 1 if batch_gpu is None else max(per_rank // batch_gpu, 1)
     trainer = build_training(
         g_config, dataset.label_dim, d_kwargs=d_kwargs, loss_kwargs=loss_kwargs,
         use_d_semantic=use_d_semantic, augment_kwargs=augment_kwargs,
         lpips_weights=lpips_weights, g_lr=g_lr,
         d_lr=d_lr, g_reg_interval=g_reg_interval, d_reg_interval=d_reg_interval,
-        grad_accum_rounds=rounds, random_seed=random_seed, device=device)
+        grad_accum_rounds=rounds, random_seed=random_seed, device=device,
+        process_group=group)
     G = trainer.G
     g_config = dict(g_config)
     g_config.setdefault("c_dim", dataset.label_dim)
@@ -169,30 +207,97 @@ def training_loop(
             if step is not None:
                 cur_nimg = step
         trainer.load_state_tree(state)
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}"
-          f"  batch: {batch_size}  accumulation rounds: {rounds}  "
-          f"G params: {sum(p.numel() for p in G.parameters()):,}")
+    if lead:
+        print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}"
+              f"  ranks: {world}  batch: {batch_size} ({per_rank} a rank)  accumulation "
+              f"rounds: {rounds}  G params: {sum(p.numel() for p in G.parameters()):,}")
 
     # stats.jsonl, the TensorBoard event file and wandb (ref
-    # `training_loop.py:388-399`)
-    stats_jsonl = open(os.path.join(run_dir, "stats.jsonl"), "at")
-    tb_writer = TBWriter(run_dir)
-    wandb_sink = WandbSink(run_dir, config=dict(g_config=g_config,
-                                               loss_kwargs=loss_kwargs))
+    # `training_loop.py:388-399`), rank 0's
+    if lead:
+        stats_jsonl = open(os.path.join(run_dir, "stats.jsonl"), "at")
+        tb_writer = TBWriter(run_dir)
+        wandb_sink = WandbSink(run_dir, config=dict(g_config=g_config,
+                                                   loss_kwargs=loss_kwargs))
     collector = Collector()
     fd_cache = {}
 
     grid_n = min(batch_size, 8)
-    grid_batch = next(loader)
-    save_image_grid((grid_batch["image"][:grid_n] + 1) * 127.5,
-                    os.path.join(run_dir, "reals.png"))
-    if dataset.data_type == "seg":
-        save_image_grid(color_mask(grid_batch["mask"][:grid_n, :, :, 0]),
-                        os.path.join(run_dir, "mask.png"))
+    grid_batch = next(loader)   # every rank takes the first batch
+    if lead:
+        save_image_grid((grid_batch["image"][:grid_n] + 1) * 127.5,
+                        os.path.join(run_dir, "reals.png"))
+        if dataset.data_type == "seg":
+            save_image_grid(color_mask(grid_batch["mask"][:grid_n, :, :, 0]),
+                            os.path.join(run_dir, "mask.png"))
     grid_z = np.random.RandomState(random_seed).randn(grid_n, G.z_dim).astype(np.float32)
 
-    generator = torch.Generator(device=device).manual_seed(random_seed * 1000 + 7)
+    shared = torch.Generator(device=device).manual_seed(random_seed * 1000 + 7)
+    generator = (shared if world == 1 else
+                 torch.Generator(device=device).manual_seed(step_seed(random_seed, rank)))
     pose_rng = np.random.RandomState(random_seed)
+
+    def checkpoint(name):
+        """Rank 0 writes the training state, between two barriers."""
+        if group is not None:
+            barrier(group, device)
+        if lead:
+            save_checkpoint(os.path.join(run_dir, name), trainer.state_tree(),
+                            config=dict(g_config=g_config), step=cur_nimg)
+        if group is not None:
+            barrier(group, device)
+
+    def report_tick(tick, tick_start_nimg, tick_start_time):
+        """stats.jsonl, TensorBoard, wandb, the tick's line, and at image
+        snapshot ticks the grids and the feature-distance trend."""
+        tick_time = time.time() - tick_start_time
+        kimg = cur_nimg / 1e3
+        means = collector.as_means()
+        fields = {
+            "Progress/kimg": kimg,
+            "Progress/tick": tick,
+            "Timing/sec_per_kimg":
+                tick_time / max((cur_nimg - tick_start_nimg) / 1e3, 1e-8),
+            "Timing/total_sec": time.time() - start_time,
+            "Progress/augment_p": augment_p,
+        }
+        fields.update(means)
+        stats_jsonl.write(json.dumps(fields) + "\n")
+        stats_jsonl.flush()
+        tb_writer.add_scalars(fields, step=cur_nimg)
+        wandb_sink.log_scalars(fields, step=cur_nimg)
+        print(f"tick {tick:<5d} kimg {kimg:<8.1f} "
+              f"time {format_time(time.time() - start_time):<12s} "
+              f"sec/kimg {fields['Timing/sec_per_kimg']:<7.1f} "
+              f"Gloss {means.get('Loss/G/loss', float('nan')):<6.3f} "
+              f"Dloss {means.get('Loss/D/loss', float('nan')):<6.3f}", flush=True)
+
+        if image_snapshot_ticks is not None and tick % image_snapshot_ticks == 0:
+            # as in the JAX loop, a failed snapshot render (e.g. the
+            # seg label grid of a generator without semantic outputs)
+            # is printed and the run goes on to the checkpoint save
+            try:
+                fakes = save_fakes(trainer.G_ema, grid_z, grid_batch, grid_n,
+                                   run_dir, cur_nimg, dataset.data_type, device,
+                                   tb_writer=tb_writer, wandb_sink=wandb_sink)
+            except Exception as e:
+                fakes = None
+                print(f"image snapshot FAILED (continuing to checkpoint "
+                      f"save): {type(e).__name__}: {e}", flush=True)
+            try:  # the trend is best effort: a failure is printed, not raised
+                if fakes is None:
+                    raise RuntimeError("no fakes rendered this tick")
+                fd = fd_trend_real_fake(grid_batch["image"][:grid_n], fakes,
+                                        fd_cache, device)
+                with open(os.path.join(run_dir, "quality.jsonl"), "a") as qf:
+                    qf.write(json.dumps({"kimg": kimg, "fd_proxy_real_fake": fd})
+                             + "\n")
+                tb_writer.add_scalars({"Metrics/fd_proxy_real_fake": fd},
+                                      step=cur_nimg)
+                print(f"fd_proxy_real_fake {fd:.4g}", flush=True)
+            except Exception as e:
+                print(f"fd trend skipped: {e}", flush=True)
+
     step_idx = 0
     tick = 0
     tick_start_nimg = cur_nimg
@@ -200,12 +305,13 @@ def training_loop(
     try:
         while True:
             batch = to_device(next(loader), device)
-            gen_z = torch.randn((4, batch_size, G.z_dim), generator=generator,
-                                device=device)
+            gen_z = torch.randn((4, batch_size, G.z_dim), generator=shared,
+                                device=device)[:, start:stop]
             gen_idx = pose_rng.randint(len(dataset), size=4 * batch_size)
             gen_c = torch.from_numpy(np.stack(
-                [dataset.get_label(i) for i in gen_idx]).reshape(
-                    4, batch_size, -1).astype(np.float32)).to(device)
+                [dataset.get_label(i) for i in
+                 gen_idx.reshape(4, batch_size)[:, start:stop].reshape(-1)]).reshape(
+                    4, per_rank, -1).astype(np.float32)).to(device)
 
             t_step = time.time()
             stats = (step_fn or Trainer.step)(
@@ -214,7 +320,7 @@ def training_loop(
                 ema_rampup=ema_rampup, aug_p=augment_p)
             collector.update(stats)
             dt_step = time.time() - t_step
-            if step_idx < 3 or step_idx in (4, 16) or step_idx % 100 == 0:
+            if lead and (step_idx < 3 or step_idx in (4, 16) or step_idx % 100 == 0):
                 print(f"step {step_idx}  {dt_step:7.2f}s  (nimg {cur_nimg})", flush=True)
             cur_nimg += batch_size
             step_idx += 1
@@ -231,79 +337,53 @@ def training_loop(
             done = cur_nimg >= total_kimg * 1000
             if (not done) and (cur_nimg < tick_start_nimg + kimg_per_tick * 1000):
                 continue
+            stop_now = done or (abort_fn is not None and abort_fn())
+            if group is not None and abort_fn is not None:   # any rank's abort
+                stop_now = bool(all_reduce_max_(
+                    torch.tensor([float(stop_now)], device=device), group).item())
 
-            # --- tick
-            tick_time = time.time() - tick_start_time
-            kimg = cur_nimg / 1e3
-            means = collector.as_means()
-            fields = {
-                "Progress/kimg": kimg,
-                "Progress/tick": tick,
-                "Timing/sec_per_kimg":
-                    tick_time / max((cur_nimg - tick_start_nimg) / 1e3, 1e-8),
-                "Timing/total_sec": time.time() - start_time,
-                "Progress/augment_p": augment_p,
-            }
-            fields.update(means)
-            stats_jsonl.write(json.dumps(fields) + "\n")
-            stats_jsonl.flush()
-            tb_writer.add_scalars(fields, step=cur_nimg)
-            wandb_sink.log_scalars(fields, step=cur_nimg)
-            print(f"tick {tick:<5d} kimg {kimg:<8.1f} "
-                  f"time {format_time(time.time() - start_time):<12s} "
-                  f"sec/kimg {fields['Timing/sec_per_kimg']:<7.1f} "
-                  f"Gloss {means.get('Loss/G/loss', float('nan')):<6.3f} "
-                  f"Dloss {means.get('Loss/D/loss', float('nan')):<6.3f}", flush=True)
+            # --- tick (rank 0 reports and snapshots; every rank checkpoints)
+            if lead:
+                report_tick(tick, tick_start_nimg, tick_start_time)
             collector.reset()
-
-            if image_snapshot_ticks is not None and tick % image_snapshot_ticks == 0:
-                # as in the JAX loop, a failed snapshot render (e.g. the
-                # seg label grid of a generator without semantic outputs)
-                # is printed and the run goes on to the checkpoint save
-                try:
-                    fakes = save_fakes(trainer.G_ema, grid_z, grid_batch, grid_n,
-                                       run_dir, cur_nimg, dataset.data_type, device,
-                                       tb_writer=tb_writer, wandb_sink=wandb_sink)
-                except Exception as e:
-                    fakes = None
-                    print(f"image snapshot FAILED (continuing to checkpoint "
-                          f"save): {type(e).__name__}: {e}", flush=True)
-                try:  # the trend is best effort: a failure is printed, not raised
-                    if fakes is None:
-                        raise RuntimeError("no fakes rendered this tick")
-                    fd = fd_trend_real_fake(grid_batch["image"][:grid_n], fakes,
-                                            fd_cache, device)
-                    with open(os.path.join(run_dir, "quality.jsonl"), "a") as qf:
-                        qf.write(json.dumps({"kimg": kimg, "fd_proxy_real_fake": fd})
-                                 + "\n")
-                    tb_writer.add_scalars({"Metrics/fd_proxy_real_fake": fd},
-                                          step=cur_nimg)
-                    print(f"fd_proxy_real_fake {fd:.4g}", flush=True)
-                except Exception as e:
-                    print(f"fd trend skipped: {e}", flush=True)
             if snapshot_ticks is not None and tick % snapshot_ticks == 0:
-                save_checkpoint(
-                    os.path.join(run_dir,
-                                 f"network-snapshot-{cur_nimg // 1000:06d}.ckpt"),
-                    trainer.state_tree(), config=dict(g_config=g_config),
-                    step=cur_nimg)
+                checkpoint(f"network-snapshot-{cur_nimg // 1000:06d}.ckpt")
             if progress_fn is not None:
                 progress_fn(cur_nimg // 1000, total_kimg)
-            if done or (abort_fn is not None and abort_fn()):
+            if stop_now:
                 break
             tick += 1
             tick_start_nimg = cur_nimg
             tick_start_time = time.time()
     finally:
         loader.close()
-        stats_jsonl.close()
-        tb_writer.close()
+        if lead:
+            stats_jsonl.close()
+            tb_writer.close()
 
-    save_checkpoint(os.path.join(run_dir, "network-final.ckpt"), trainer.state_tree(),
-                    config=dict(g_config=g_config), step=cur_nimg)
-    wandb_sink.finish()
-    print(f"done: {cur_nimg / 1e3:.1f} kimg in {format_time(time.time() - start_time)}")
+    checkpoint("network-final.ckpt")
+    if lead:
+        wandb_sink.finish()
+        print(f"done: {cur_nimg / 1e3:.1f} kimg in {format_time(time.time() - start_time)}")
     return trainer
+
+
+def train_rank(local_rank, args, config, run_dir, local, coordinator, step_fn=None):
+    """One training process of the CLI (`train/__main__.py`): rank
+    `local_rank` of this node (on card `local_rank` when the node spawns one
+    process per card), `config` its `run_config`; it joins the world group
+    of `args`' `--num-nodes`/`--node-rank`/`--coordinator`."""
+    rank, world = world_layout(args.num_nodes, args.node_rank or 0, local, local_rank)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local_rank)
+    group = initialize_multihost(coordinator, world, rank, device=device)
+    try:
+        training_loop(run_dir=run_dir, step_fn=step_fn, process_group=group,
+                      **dict(config, device=device))
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 def fd_trend_real_fake(reals, fakes, cache, device):

@@ -15,6 +15,7 @@ level (1e-4-close floats may round to neighbouring levels); orbit poses
 colorization, vertex labels and configs exactly.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ bit.  R1's gradients: 1e-4 relative + 1e-6 (a second differentiation sums
 over pixels and taps in other orders).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import contextlib
 
 import numpy as np

@@ -8,6 +8,7 @@ the JAX package's `pallas_call`s have no VJP either.  Under
 before.  chip_smoke.py checks the same on the card.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ tests/test_torch_late_separate.py (f32 2e-5; bf16 8e-3 per element plus
 `bridge.params_from_jax`.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ small generator is the one of tests/test_torch_generator.py (cbase 1024,
 cmax 32); its tree is `jax.device_get(G.init(PRNGKey(0)))`.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import io
 import json
 import pickle

@@ -18,6 +18,7 @@ per-element gate alone would let it through.  Fused vs unfused frustum
 render at 1e-4, as tests/test_render_pallas.py holds the JAX pair.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

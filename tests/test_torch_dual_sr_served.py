@@ -19,6 +19,7 @@ distance, its share of tests/test_dual_sr.py's bf16 allclose (rtol = atol =
     PYTHONPATH=. python tests/test_torch_dual_sr_served.py
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import math
 import sys
 

@@ -11,6 +11,7 @@ CPU).  Tolerance 1e-4: all five outputs are f32 on both sides; the JAX
 suite's own end-to-end parity gates are 2e-3..5e-3 (tests/test_parity_e2e.py).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import ast
 import inspect
 import os
@@ -157,10 +158,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_import_rules_cover_the_trainer():
-    """The trainer's modules, its CLI, every module of the metrics package
-    and the profiling helpers are among the sources the two import checks
-    read."""
+    """The trainer's modules, its CLI, the data-parallel package, every
+    module of the metrics package and the profiling helpers are among the
+    sources the two import checks read."""
     sources = set(_port_sources())
+    for name in ("__init__", "multihost", "trainer"):
+        assert PORT / "parallel" / f"{name}.py" in sources, name
     for name in ("trainer", "loss", "loop", "dataset", "native_loader", "lpips",
                  "stats", "ema", "checkpoint", "viz", "__main__", "augment", "tb",
                  "wandb_sink"):

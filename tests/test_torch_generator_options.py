@@ -16,6 +16,7 @@ blocks, whose rounding the two frameworks do not share: it is compared
 only between runs of the port.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

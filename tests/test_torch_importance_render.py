@@ -2,6 +2,7 @@
 it (`pix2pix3d_tpu_torch/render/{math_utils,ray_marcher,renderer}.py`,
 `ops/grid_sample.py`, `models/triplane.py`) against the JAX package's, at
 small sizes on the CPU in f32.  Inputs are made with numpy, weights bridged
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 from the JAX `init`.
 
 Tolerances: 1e-5 for geometry, grid sampling, weights and depth sampling

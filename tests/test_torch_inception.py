@@ -15,6 +15,7 @@ scripts/convert_inception.py, batch 2, on the CPU.
   when it names none, as the JAX package's does.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ Tolerances:
   and 0.32 of it), the RMS gate fails both by 4x or more.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

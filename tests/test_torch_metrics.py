@@ -23,6 +23,7 @@ generator or a network to compile.
   profiling helpers.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import contextlib
 import glob
 import os

@@ -9,6 +9,7 @@ modulated conv and synthesis layers to the reference at 1e-4..1e-3
 (tests/test_parity_torch.py).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ random draw without a generator raises, as JAX asserts on a missing key.
 f32 on the CPU at narrow widths; tolerance 1e-4 as in tests/test_torch_nn.py.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

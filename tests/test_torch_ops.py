@@ -7,6 +7,7 @@ same sums in f32 (the JAX suite's own upfirdn2d oracle gate, test_ops.py),
 test_ops.py::test_bias_act_matches_torch).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import importlib
 
 import numpy as np

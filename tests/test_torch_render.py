@@ -7,6 +7,7 @@ matmuls sum in different orders (the JAX suite's own windowed-vs-full
 frustum gate, tests/test_frustum.py, is 1e-4).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

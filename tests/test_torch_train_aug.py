@@ -20,6 +20,7 @@ the first tick's image snapshot writes a finite feature-distance trend to
 `quality.jsonl`, and every TensorBoard record passes its CRC checks.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import json
 import math
 import os

@@ -21,6 +21,7 @@ gradients are ~1e-3 of the weights' and rounding noise in bf16).  f32 (the
 gradfix check): 1e-5 of the largest entry, other summation orders.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@ training CLI end to end.
   state, leaf for leaf equal to the port's trainer.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import json
 import os
 

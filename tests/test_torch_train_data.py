@@ -4,11 +4,12 @@ decoder (built from `native/png_reader.cpp` into the port's `_build/`) on
 Pillow's PNGs, the seg and edge datasets (directory and zip), the sampler
 and the `DataLoader` batches, item for item against the JAX package's on
 one synthetic folder; the training CLI's dry-run config against
-`train.py`'s, and its refusal of `--num-nodes` above 1 (not ported yet).
+`train.py`'s, and its refusal of inconsistent `--num-nodes` flags.
 Exact equality throughout: the pipeline moves uint8
 pixels and float32 poses, and normalizes them with the same arithmetic.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import io
 import itertools
 import json
@@ -141,13 +142,22 @@ def test_loader_raises_the_workers_failure(folder, tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--num-nodes", "2"], "--num-nodes"),
+    (["--num-nodes", "2"], "--node-rank"),
+    (["--num-nodes", "2", "--node-rank", "1"], "--coordinator"),
+    (["--num-nodes", "2", "--node-rank", "2", "--coordinator", "localhost:1"],
+     "node rank 2"),
+    (["--num-nodes", "3", "--node-rank", "0", "--coordinator", "localhost:1"],
+     "must divide over 3 devices"),
 ])
 def test_cli_refuses_the_deferred_flags(folder, tmp_path, flags, what):
+    """`--num-nodes` above 1 runs (multi-node training), but not without
+    this node's rank and the coordinator, nor with a rank outside the
+    world or a batch that does not divide over it: each is refused before
+    anything is written."""
     argv = ["--outdir", str(tmp_path), "--cfg", "afhq", "--data", folder["imgs"],
             "--mask_data", folder["masks"], "--batch", "2", "--gamma", "5",
             "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4") as e:
+    with pytest.raises(ValueError) as e:
         tcli.main(argv)
     assert what in str(e.value)
     assert not list(tmp_path.iterdir())

@@ -7,6 +7,7 @@ The D phases render the fake images under `torch.no_grad`, as JAX's under
 `stop_gradient`; `d_main` also returns the ws for the w_avg update.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ port's hooks.
   gradients (serving) the setting changes nothing.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

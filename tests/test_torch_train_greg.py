@@ -7,6 +7,7 @@ per-leaf gradient max |g - g_jax| <= 1e-3 max |g_jax| + 1e-6.  The draws
 to the port's hooks in the order JAX drew them.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import jax
 import pytest
 import torch

@@ -10,6 +10,7 @@ sides, other summation orders); the input gradient 1e-3 of its largest
 entry + 1e-6 (as the phase gradients, tests/test_torch_train_phases.py).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -30,6 +30,7 @@ Tolerances (the reasons):
   rounding of their inputs).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import contextlib
 
 import numpy as np
@@ -208,19 +209,28 @@ def jit_with_draws(fn):
     return call
 
 
+def take_from(queue, kind, shape):
+    """The next JAX draw of `queue` as a tensor, checked to be of the kind
+    and shape the port asks for."""
+    assert queue, f"the port drew more than the JAX package ({kind} {shape})"
+    got_kind, arr = queue.pop(0)
+    assert got_kind == kind and tuple(arr.shape) == tuple(shape), \
+        (kind, tuple(shape), got_kind, arr.shape)
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
 @pytest.fixture
 def shared_draws(monkeypatch):
     """A queue of JAX draws [(kind, array)] that the port's draw hooks hand
     out in order; each hook checks the kind and shape it asks for."""
     queue = []
+    install_draw_hooks(monkeypatch, lambda kind, shape: take_from(queue, kind, shape))
+    yield queue
+    assert not queue, f"the port drew {len(queue)} fewer numbers than JAX"
 
-    def take(kind, shape):
-        assert queue, f"the port drew more than the JAX package ({kind} {shape})"
-        got_kind, arr = queue.pop(0)
-        assert got_kind == kind and tuple(arr.shape) == tuple(shape), \
-            (kind, tuple(shape), got_kind, arr.shape)
-        return torch.from_numpy(np.array(arr, np.float32))
 
+def install_draw_hooks(monkeypatch, take):
+    """Point every draw hook of the port at `take(kind, shape)`."""
     def noise(shape, generator, device):
         n, _, h, w = shape
         return take("normal", (n, h, w, 1)).permute(0, 3, 1, 2).contiguous().to(device)
@@ -240,8 +250,6 @@ def shared_draws(monkeypatch):
                         lambda g, shape, device: take("normal", shape).to(device))
     monkeypatch.setattr(taug, "draw_randint",
                         lambda g, lo, hi, shape, device: take("randint", shape).to(device))
-    yield queue
-    assert not queue, f"the port drew {len(queue)} fewer numbers than JAX"
 
 
 def port_value_and_grad(fn, module, modules):

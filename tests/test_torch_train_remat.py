@@ -22,6 +22,7 @@ recompute a copy of the generator as it stood before the forward.
   comparison meets draws JAX never made.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

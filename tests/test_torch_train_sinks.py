@@ -18,6 +18,7 @@ real-vs-fake trend.
   other values than JAX's: not compared.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import io
 import math
 import os

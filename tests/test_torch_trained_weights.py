@@ -11,6 +11,7 @@ Tolerance 1e-4: the port's tests' gate for each path (the renderer's,
 tests/test_parity_render.py, and tests/test_torch_generator.py's).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import json
 import os
 from pathlib import Path

@@ -14,6 +14,7 @@ both sides, only the summation order differs.  bf16 blocks (the dual pass
 at `sr_num_fp16_res` > 0): 2e-2, that file's bf16 gate.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ tests/test_torch_train_data.py's folder (128² images, 6-class masks) at
 cbase 512, cmax 16, encoder channel base 1/128, nrr 16, batch 2, one step.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import json
 import os
 import shutil

@@ -31,6 +31,7 @@ apart from JAX's, 8e-6 of the scale).  The dual SR pass against the
 separate one: 1e-5 (tests/test_dual_sr.py).
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -28,6 +28,7 @@ Tolerances (that file's, with its reasons): loss values 1e-4 relative;
 gradients, per leaf, max |g - g_jax| <= 1e-3 * max |g_jax| + 1e-6.
 """
 
+import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch
