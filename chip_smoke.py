@@ -246,6 +246,35 @@ time and the generator's parameter count; their paths join
                the checkpoint written.  Neither kernel launches on (a)'s
                path.
 
+30. stylegan3 -- `nn/stylegan3.GeneratorS3` at the published AFHQv2 512^2
+               widths of NVlabs/stylegan3 (StyleGAN3-T: channel_base 32768,
+               channel_max 512, 2 mapping layers, 4 fp16 resolutions,
+               conv_clamp 256; StyleGAN3-R: 1x1 convs, channel base and max
+               doubled, radial filters), seeded random weights, batch 4, bf16
+               layers and TF32 as served: shapes, finiteness, median ms of 3
+               forwards, peak memory; a small T and R (32^2, f32, TF32 off)
+               on the card against the same weights on the CPU, S3_CPU_TOL.
+31. equivariance -- `metric_main.calc_metric("eq100")` on phase 30's
+               StyleGAN3-T: 100 latents at batch 4, four renders each, the
+               image operators on the card; the three PSNRs (finite) and the
+               seconds; the input transform restored.
+32. legacy-tf -- TensorFlow StyleGAN2 pickles built in memory from a seeded
+               numpy generator: config-f (1024^2, fmap_base 16384, fmap_max
+               512, 8 mapping layers, skip G, resnet D), a small
+               progressive-growing one (`ToRGB_lod*`/`FromRGB_lod*` -> "orig"
+               G and D) and a small "skip" D, each through
+               `load_legacy_tf_networks`, G_ema and D at batch 4 on the card
+               (f32, TF32 off): shapes, finiteness, ms; config-f through
+               `legacy_tf.main()` into a checkpoint read back bit for bit.
+33. frustum-tiles -- the serving generator with `frustum_tiles` (nrr//4,
+               96, nrr//4, 96, 256) at nrr 128: 3 requests (1 decode_composite
+               launch each) against the default window's on the same inputs,
+               f32 with TF32 off (render outputs TILES_TOL, SR outputs
+               FUSED_TOL); undersized tiles at yaw +0.6, pitch -0.4 NaN-poison
+               the render; request ms as served, tiles and default window in
+               turns.
+Phases 30-32 launch neither kernel; their paths join `launches_by_path`.
+
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
 `device_ms`, `plain_device_ms` and `library_device_ms` time the same calls
@@ -266,6 +295,7 @@ The second-to-last line is the `kernels` JSON, the last line
 own failure, and nothing runs on the CPU in place of the card.
 """
 
+import io
 import json
 import math
 import os
@@ -2873,6 +2903,393 @@ def ddp_cli(card, small, small_argv):
         raise AssertionError(f"train-ddp (c): {len(steps)} steps, not {DDP_STEPS}")
 
 
+# ---------------------------------------------------------------------------
+# phases 30-33: StyleGAN3, the equivariance metrics, legacy TensorFlow
+# pickles, per-output-tile frustum windows
+
+# NVlabs/stylegan3 train.py for AFHQv2 512^2 (--cfg=stylegan3-t: cbase 32768,
+# cmax 512, map 2, 4 fp16 resolutions, conv_clamp 256; stylegan3-r: 1x1
+# convs, channel_base and channel_max doubled, radial filters), 14 layers
+S3_CONFIGS = {
+    "stylegan3-t": dict(channel_base=32768, channel_max=512),
+    "stylegan3-r": dict(channel_base=65536, channel_max=1024, conv_kernel=1,
+                        use_radial_filters=True),
+}
+S3_BATCH = 4
+# card against the port on the CPU at a small width, f32 with TF32 off: the
+# same code on both devices reads below 5e-7 (max abs, T and R, on an H100),
+# while TF32 rounds a product's inputs to 10 mantissa bits (about 5e-4
+# relative) and bf16 to 7, so the gate sits between the two
+S3_CPU_TOL = 1e-5
+# StyleGAN2 config-f (1024^2, fmap_base 16384, fmap_max 512, 8 mapping
+# layers, skip G, resnet D) and two small pickles: a progressive-growing one
+# (ToRGB_lod* / FromRGB_lod* -> "orig") and a "skip" D
+TF_CONFIG_F = dict(resolution=1024, fmap_base=16384, fmap_max=512,
+                   mapping_layers=8, latent_size=512, dlatent_size=512)
+TF_SMALL = dict(resolution=64, fmap_base=2048, fmap_max=128, mapping_layers=2,
+                latent_size=128, dlatent_size=128)
+TF_BATCH = 4
+# tiled against the default window, f32 with TF32 off: the render's outputs
+# at the JAX suite's tiled-vs-full gate (tests/test_frustum.py), the SR
+# outputs at its fused-vs-unfused generator gate (FUSED_TOL)
+TILES_TOL = 1e-4
+
+
+def s3_kwargs(name, **over):
+    kw = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=512, img_channels=3,
+              num_fp16_res=4, conv_clamp=256, mapping_kwargs={"num_layers": 2},
+              **S3_CONFIGS[name])
+    kw.update(over)
+    return kw
+
+
+def phase_stylegan3(device, card, counts):
+    """Phase 30: GeneratorS3 at the published AFHQv2 512^2 widths
+    (StyleGAN3-T and -R, seeded random weights), batch 4, bf16 layers and
+    TF32 as served: shapes, finiteness, median ms of 3 forwards after a
+    warm-up, peak memory; then a small T and R on the card against the same
+    weights on the CPU (f32, TF32 off).  Returns the T generator."""
+    from pix2pix3d_tpu_torch.models.triplane import init_parameters
+    from pix2pix3d_tpu_torch.nn.stylegan3 import GeneratorS3
+    from pix2pix3d_tpu_torch.ops import precision
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn((S3_BATCH, 512), generator=gen).to(device)
+    out = None
+    for name in S3_CONFIGS:
+        G = GeneratorS3(**s3_kwargs(name))
+        init_parameters(G, torch.Generator().manual_seed(0))
+        G = G.to(device).eval().requires_grad_(False)
+
+        def forward():
+            with torch.no_grad(), precision.policy(True):
+                return G(z, None, noise_mode="const")
+
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, img = counts.requests(f"stylegan3-{name[-1]}", forward, 3, NO_LAUNCHES)
+        res = G.img_resolution
+        check_shapes({"image": img}, {"image": (S3_BATCH, 3, res, res)})
+        layers = G.synthesis.layer_names
+        log(f"stylegan3 {name}: {sum(p.numel() for p in G.parameters()) / 1e6:.1f} M "
+            f"params, {len(layers)} layers ({layers[0]} .. {layers[-1]}), "
+            f"{sum(getattr(G.synthesis, n).use_fp16 for n in layers)} in bf16; batch "
+            f"{S3_BATCH}: image {tuple(img.shape)} finite, std {img.float().std():.4f}; "
+            f"ms {[round(t, 3) for t in times]} median {statistics.median(times):.3f}; "
+            f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+        if name == "stylegan3-t":
+            out = G
+        else:
+            del G
+        torch.cuda.empty_cache()
+
+    small = dict(img_resolution=32, channel_base=1024, channel_max=32, num_layers=5,
+                 num_fp16_res=0, z_dim=64, w_dim=64)
+    zs = torch.randn((2, 64), generator=gen)
+    for name in S3_CONFIGS:
+        kw = s3_kwargs(name, **small)
+        if name == "stylegan3-r":
+            kw.update(channel_base=2048, channel_max=64)
+        cpu = GeneratorS3(**kw)
+        init_parameters(cpu, torch.Generator().manual_seed(1))
+        card_g = GeneratorS3(**kw)
+        card_g.load_state_dict(cpu.state_dict())
+        card_g = card_g.to(device)
+        with torch.no_grad(), precision.policy(False):
+            want = cpu(zs, None)
+            got = card_g(zs.to(device), None).cpu()
+        abs_e, rel_e, used, _ = compare((got,), (want,), S3_CPU_TOL)
+        log(f"stylegan3 {name} at 32^2 (f32, TF32 off), card vs CPU: max abs "
+            f"{abs_e:.3e} rel {rel_e:.3e} ({used:.3f} of tol {S3_CPU_TOL})")
+    phase_done("stylegan3", t0)
+    return out
+
+
+def phase_equivariance(G, card, counts):
+    """Phase 31: `calc_metric("eq100")` through the port's registry on phase
+    30's StyleGAN3-T (100 latents at batch 4, four renders each, the image
+    operators on the card): the three PSNRs, finite, and the seconds."""
+    from pix2pix3d_tpu_torch.metrics import metric_main
+    t0 = time.time()
+    res = counts.run("equivariance", lambda: metric_main.calc_metric(
+        "eq100", G=G, device="cuda", rng_seed=0))
+    if set(res["results"]) != {"eqt_int", "eqt_frac", "eqr"}:
+        raise AssertionError(f"eq100 returned {res['results']}")
+    if not all(math.isfinite(v) for v in res["results"].values()):
+        raise AssertionError(f"eq100: non-finite PSNR {res['results']}")
+    if any(c["equivariance"] for c in counts.by_path.values()):
+        raise AssertionError("eq100 launched a kernel")
+    if not torch.equal(G.synthesis.input.transform.cpu(), torch.eye(3)):
+        raise AssertionError("eq100 left the input transform changed")
+    log(f"equivariance eq100 (stylegan3-t {G.img_resolution}^2, random weights, "
+        f"100 latents): "
+        + ", ".join(f"{k} {v:.4f} dB" for k, v in res["results"].items())
+        + f"; total {res['total_time']:.2f} s [{card}]")
+    phase_done("equivariance", t0)
+
+
+def tf_pickle(kw, g_arch="skip", d_arch="resnet", lod=False, seed=0):
+    """A legacy TF (G, D, Gs) pickle of StyleGAN2 networks at the widths of
+    `kw` (TF kwarg names), weights from `np.random.default_rng(seed)`, built
+    in memory as `dnnlib.tflib.network.Network` objects.  `lod` adds the
+    per-lod ToRGB/FromRGB variables of progressive growing (-> "orig")."""
+    import pickle
+    import types
+    rng = np.random.default_rng(seed)
+    res, wd = kw["resolution"], kw["dlatent_size"]
+    log2 = int(math.log2(res))
+
+    def ch(r):
+        return min(kw["fmap_base"] * 2 // r, kw["fmap_max"])
+
+    def v(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    def mod_layer(prefix, k, cin, cout, noise=True):
+        out = [(f"{prefix}/weight", v(k, k, cin, cout)), (f"{prefix}/bias", v(cout)),
+               (f"{prefix}/mod_weight", v(wd, cin)), (f"{prefix}/mod_bias", v(cin))]
+        if noise:
+            out.append((f"{prefix}/noise_strength", np.float32(rng.standard_normal())))
+        return out
+
+    def generator():
+        mapping = []
+        for i in range(kw["mapping_layers"]):
+            cin = kw["latent_size"] if i == 0 else wd
+            mapping += [(f"Dense{i}/weight", v(cin, wd)), (f"Dense{i}/bias", v(wd))]
+        syn = [("4x4/Const/const", v(1, ch(4), 4, 4)), ("noise0", v(1, 1, 4, 4))]
+        syn += mod_layer("4x4/Conv", 3, ch(4), ch(4))
+        syn += mod_layer("4x4/ToRGB", 1, ch(4), 3, noise=False)
+        for lg in range(3, log2 + 1):
+            r = 2 ** lg
+            syn += [(f"noise{2 * lg - 5}", v(1, 1, r, r)),
+                    (f"noise{2 * lg - 4}", v(1, 1, r, r))]
+            syn += mod_layer(f"{r}x{r}/Conv0_up", 3, ch(r // 2), ch(r))
+            syn += mod_layer(f"{r}x{r}/Conv1", 3, ch(r), ch(r))
+            syn += mod_layer(f"{r}x{r}/ToRGB", 1, ch(r), 3, noise=False)
+            if g_arch == "resnet":
+                syn.append((f"{r}x{r}/Skip/weight", v(1, 1, ch(r // 2), ch(r))))
+        top = [("dlatent_avg", v(wd))]
+        if lod:
+            top += [("ToRGB_lod0/weight", v(1, 1, ch(res), 3)), ("ToRGB_lod0/bias", v(3))]
+        static = dict(kw, architecture=g_arch) if g_arch != "skip" else dict(kw)
+        return dict(version=4, name="G", static_kwargs=static, variables=top,
+                    components={"mapping": dict(version=4, name="mapping", static_kwargs={},
+                                                variables=mapping, components={}),
+                                "synthesis": dict(version=4, name="synthesis",
+                                                  static_kwargs={}, variables=syn,
+                                                  components={})})
+
+    def discriminator():
+        out = []
+        for lg in range(log2, 2, -1):
+            r = 2 ** lg
+            if r == res or d_arch == "skip":
+                name = "FromRGB_lod0" if lod and r == res else f"{r}x{r}/FromRGB"
+                out += [(f"{name}/weight", v(1, 1, 3, ch(r))), (f"{name}/bias", v(ch(r)))]
+            out += [(f"{r}x{r}/Conv0/weight", v(3, 3, ch(r), ch(r))),
+                    (f"{r}x{r}/Conv0/bias", v(ch(r))),
+                    (f"{r}x{r}/Conv1_down/weight", v(3, 3, ch(r), ch(r // 2))),
+                    (f"{r}x{r}/Conv1_down/bias", v(ch(r // 2)))]
+            if d_arch == "resnet":
+                out.append((f"{r}x{r}/Skip/weight", v(1, 1, ch(r), ch(r // 2))))
+        if d_arch == "skip":
+            out += [("4x4/FromRGB/weight", v(1, 1, 3, ch(4))), ("4x4/FromRGB/bias", v(ch(4)))]
+        out += [("4x4/Conv/weight", v(3, 3, ch(4) + 1, ch(4))), ("4x4/Conv/bias", v(ch(4))),
+                ("4x4/Dense0/weight", v(ch(4) * 16, ch(4))), ("4x4/Dense0/bias", v(ch(4))),
+                ("Output/weight", v(ch(4), 1)), ("Output/bias", v(1))]
+        static = dict(resolution=res, fmap_base=kw["fmap_base"], fmap_max=kw["fmap_max"],
+                      mbstd_group_size=4)
+        if d_arch != "resnet":
+            static["architecture"] = d_arch
+        return dict(version=4, name="D", static_kwargs=static, variables=out,
+                    components={})
+
+    names = ("dnnlib", "dnnlib.tflib", "dnnlib.tflib.network")
+    saved = {m: sys.modules.get(m) for m in names}
+    network = types.ModuleType("dnnlib.tflib.network")
+
+    class Network:
+        pass
+
+    Network.__module__, Network.__qualname__ = "dnnlib.tflib.network", "Network"
+    network.Network = Network
+
+    def wrap(state):
+        obj = Network.__new__(Network)
+        obj.__dict__.update(dict(state, components={k: wrap(c) for k, c in
+                                                    state["components"].items()}))
+        return obj
+
+    for m in names:
+        sys.modules[m] = network if m == names[-1] else types.ModuleType(m)
+    try:
+        return pickle.dumps((wrap(generator()), wrap(discriminator()), wrap(generator())),
+                            protocol=4)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def tree_equal(a, b):
+    """The paths of leaves that differ between two numpy trees (bits,
+    dtypes, shapes)."""
+    from pix2pix3d_tpu_torch.utils.misc import tree_paths
+    la, lb = dict(tree_paths(a)), dict(tree_paths(b))
+    if la.keys() != lb.keys():
+        return sorted(set(la) ^ set(lb))
+    return [p for p in la if la[p].dtype != np.asarray(lb[p]).dtype
+            or not np.array_equal(la[p], np.asarray(lb[p]))]
+
+
+def phase_legacy_tf(device, card, counts, tmp):
+    """Phase 32: legacy TensorFlow pickles through `utils/legacy_tf.py`:
+    config-f (1024^2, skip G, resnet D), a small progressive-growing one
+    ("orig" G and D) and a small "skip" D, each converted and its G_ema and
+    D run at batch 4 on the card (shapes, finiteness, ms); config-f through
+    the CLI's `main()`, its checkpoint read back bit for bit."""
+    from pix2pix3d_tpu_torch import bridge
+    from pix2pix3d_tpu_torch.nn.discriminator import Discriminator
+    from pix2pix3d_tpu_torch.nn.synthesis import Generator
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.train.checkpoint import load_checkpoint
+    from pix2pix3d_tpu_torch.utils import legacy_tf
+    t0 = time.time()
+    cases = (("config-f", TF_CONFIG_F, "skip", "resnet", False),
+             ("lod-orig", TF_SMALL, "skip", "resnet", True),
+             ("skip-D", TF_SMALL, "skip", "skip", False))
+    for name, kw, g_arch, d_arch, lod in cases:
+        t1 = time.perf_counter()
+        buf = tf_pickle(kw, g_arch, d_arch, lod)
+        t2 = time.perf_counter()
+        nets = legacy_tf.load_legacy_tf_networks(io.BytesIO(buf))
+        t3 = time.perf_counter()
+        (g_kw, g_tree), (d_kw, d_tree) = nets["G_ema"], nets["D"]
+        G = Generator(**g_kw)
+        G.load_state_dict(bridge.params_from_jax(g_tree), strict=True)
+        D = Discriminator(**d_kw)
+        D.load_state_dict(bridge.params_from_jax(d_tree), strict=True)
+        G, D = G.to(device).eval(), D.to(device).eval()
+        z = torch.randn((TF_BATCH, g_kw["z_dim"]),
+                        generator=torch.Generator().manual_seed(3)).to(device)
+
+        def run():
+            with torch.no_grad(), precision.policy(False):
+                img = G(z, None, noise_mode="const")
+                return img, D(img, None)
+
+        run()
+        torch.cuda.synchronize()
+        times, (img, logits) = counts.requests(f"legacy-tf-{name}", run, 3, NO_LAUNCHES)
+        res = g_kw["img_resolution"]
+        check_shapes({"image": img, "logits": logits},
+                     {"image": (TF_BATCH, 3, res, res), "logits": (TF_BATCH, 1)})
+        log(f"legacy-tf {name}: pickle {len(buf) / 2**20:.1f} MiB built in "
+            f"{t2 - t1:.2f} s, converted in {t3 - t2:.2f} s; G {g_kw['architecture']} "
+            f"{sum(p.numel() for p in G.parameters()) / 1e6:.2f} M params, D "
+            f"{d_kw['architecture']} {sum(p.numel() for p in D.parameters()) / 1e6:.2f} M; "
+            f"G_ema + D at batch {TF_BATCH} (f32, TF32 off): image {tuple(img.shape)}, "
+            f"logits {tuple(logits.shape)} finite; ms {[round(t, 3) for t in times]} "
+            f"[{card}]")
+        if (g_kw["architecture"], d_kw["architecture"]) != (
+                "orig" if lod else g_arch, "orig" if lod else d_arch):
+            raise AssertionError(f"{name}: architectures {g_kw['architecture']}, "
+                                 f"{d_kw['architecture']}")
+        if name == "config-f":
+            src, dest = os.path.join(tmp, "config-f.pkl"), os.path.join(tmp, "config-f.ckpt")
+            with open(src, "wb") as f:
+                f.write(buf)
+            t1 = time.perf_counter()
+            legacy_tf.main(["--source", src, "--dest", dest])
+            t2 = time.perf_counter()
+            state, step = load_checkpoint(dest)
+            bad = [(k, tree_equal(state[k], tree)) for k, (_, tree) in nets.items()]
+            if step != 0 or any(b for _, b in bad):
+                raise AssertionError(f"checkpoint of main() differs: step {step}, {bad}")
+            with open(dest + ".json") as f:
+                sidecar = json.load(f)
+            if set(sidecar) != {"G", "D", "G_ema"}:
+                raise AssertionError(f"sidecar {sorted(sidecar)}")
+            log(f"legacy-tf main(): {os.path.getsize(dest) / 2**20:.1f} MiB written in "
+                f"{t2 - t1:.2f} s, read back bit for bit (G, D, G_ema)")
+        del G, D, nets, buf
+        torch.cuda.empty_cache()
+    phase_done("legacy-tf", t0)
+
+
+def phase_frustum_tiles(device, card, counts):
+    """Phase 33: the serving generator with `frustum_tiles` (nrr//4, 96,
+    nrr//4, 96, 256) at nrr 128, full seg2cat width: 3 requests against the
+    default-window request on the same inputs, f32 with TF32 off (1
+    decode_composite launch each); an out-of-envelope camera with small
+    tiles NaN-poisons the render; request ms as served (bf16 slabs, TF32),
+    tiles and default window in turns."""
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    t0 = time.time()
+    nrr = config.SERVING_NEURAL_RENDERING_RESOLUTION
+    tiles = (nrr // 4, 96, nrr // 4, 96, 256)
+    G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
+    rk = G.rendering_kwargs
+    serving = dict(rk)
+    z, pose, batch = request_inputs(G, 0, device)
+
+    def request(tf32=True, force_fp32=False):
+        with torch.no_grad(), precision.policy(tf32):
+            return G(z, pose, batch, neural_rendering_resolution=nrr,
+                     noise_mode="const", det=True, force_fp32=force_fp32)
+
+    def f32():
+        return request(tf32=False, force_fp32=True)
+
+    # f32: tiles against the default window
+    rk.update(frustum_bf16=False, sr_sem_precision=None)
+    want = f32()
+    rk["frustum_tiles"] = tiles
+    f32()
+    _, got = counts.requests("frustum-tiles", f32, 3, ONE_DECODE_COMPOSITE)
+    for key in ("image_raw", "image_depth", "semantic_raw", "image", "semantic"):
+        tol = TILES_TOL if key.endswith(("raw", "depth")) else FUSED_TOL
+        abs_e, rel_e, used, _ = compare((got[key],), (want[key],), tol)
+        log(f"frustum-tiles {tiles} vs default window (f32, TF32 off) {key:12s}: "
+            f"max abs {abs_e:.3e} rel {rel_e:.3e} ({used:.3f} of tol {tol})")
+    # out of the envelope: small tiles at an orbit extreme
+    c2w = LookAtPoseSampler.sample(math.pi / 2 + 0.6, math.pi / 2 - 0.4,
+                                   [0, 0, -0.06], radius=2.7, device=device)
+    far = pose_to_conditioning(c2w, fov_to_intrinsics(18.837, device=device))
+    rk["frustum_tiles"] = (nrr // 4, 16, nrr // 4, 16, 64)
+    with torch.no_grad(), precision.policy(False):
+        bad = G(z, far, dict(batch, pose=far), neural_rendering_resolution=nrr,
+                noise_mode="const", det=True)
+    if not all(torch.isnan(bad[k]).all() for k in ("image_raw", "image_depth")):
+        raise AssertionError("undersized tiles out of the envelope gave a finite render")
+    log(f"frustum-tiles {rk['frustum_tiles']} at yaw +0.6, pitch -0.4: render "
+        f"NaN-poisoned (the coverage guard)")
+    # as served, in turns
+    rk.clear()
+    rk.update(serving)
+    request()
+    times = {"tiles": [], "window": []}
+    for _ in range(3):
+        for name in ("tiles", "window"):
+            rk["frustum_tiles"] = tiles if name == "tiles" else None
+            times[name] += timed_requests(request, 1)[0]
+    log("frustum-tiles as served (bf16 slabs, TF32), ms in turns: " + "; ".join(
+        f"{k} {[round(t, 3) for t in v]} median {statistics.median(v):.3f}"
+        for k, v in times.items()) + f" [{card}]")
+    del G
+    torch.cuda.empty_cache()
+    phase_done("frustum-tiles", t0)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -3294,6 +3711,13 @@ def main():
         phase_metrics(device, card, counts, folder, tmp, sfu_per_s, request_ms)
         # ---- 29. data-parallel training over torch.distributed
         phase_train_ddp(device, card, counts, folder, tmp)
+        # ---- 30.-33. StyleGAN3, equivariance, legacy TF pickles, frustum tiles
+        G_s3 = phase_stylegan3(device, card, counts)
+        phase_equivariance(G_s3, card, counts)
+        del G_s3
+        torch.cuda.empty_cache()
+        phase_legacy_tf(device, card, counts, tmp)
+        phase_frustum_tiles(device, card, counts)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

@@ -3,10 +3,11 @@
 
     calc_metric("miou500", G=G, dataset=ds)             # on the card
     calc_metric("fid2k", G=G, dataset=ds, device="cpu")
+    calc_metric("eq100", G=G_s3)                         # a GeneratorS3
 
 The equivariance metrics (`eqt50k_int`, `eqt50k_frac`, `eqr50k`, `eq100`)
-are registered and raise: `metrics/equivariance.py` applies only to the
-StyleGAN3 generator, which the port does not have yet.
+apply only to the StyleGAN3 generator (`nn/stylegan3.GeneratorS3`) and take
+no dataset.
 """
 
 from __future__ import annotations
@@ -14,15 +15,13 @@ from __future__ import annotations
 import time
 
 from . import metric_utils
+from .equivariance import compute_equivariance_metrics
 from .frechet_inception_distance import compute_fid
 from .inception_score import compute_is
 from .kernel_inception_distance import compute_kid
 from .miou import compute_miou
 from .perceptual_path_length import compute_ppl
 from .precision_recall import compute_pr
-
-# the StyleGAN3 generator and metrics/equivariance.py are not ported yet
-STYLEGAN3_ITEM = "ROADMAP.md Queue 1 item 6 (StyleGAN3)"
 
 _metric_dict = {}
 
@@ -50,12 +49,6 @@ def calc_metric(metric, **kwargs):
     results = _metric_dict[metric](opts)
     return dict(results=results, metric=metric,
                 total_time=time.time() - start)
-
-
-def _equivariance(name):
-    raise NotImplementedError(
-        f"{name}: the equivariance metrics apply only to the StyleGAN3 "
-        f"generator (GeneratorS3), which is not ported yet: {STYLEGAN3_ITEM}")
 
 
 @register_metric
@@ -107,23 +100,31 @@ def is50k(opts):
 
 @register_metric
 def eqt50k_int(opts):
-    _equivariance("eqt50k_int")
+    r = compute_equivariance_metrics(opts, num_samples=50000, batch_size=4,
+                                     compute_eqt_int=True)
+    return {"eqt50k_int": r["eqt_int"]}
 
 
 @register_metric
 def eqt50k_frac(opts):
-    _equivariance("eqt50k_frac")
+    r = compute_equivariance_metrics(opts, num_samples=50000, batch_size=4,
+                                     compute_eqt_frac=True)
+    return {"eqt50k_frac": r["eqt_frac"]}
 
 
 @register_metric
 def eqr50k(opts):
-    _equivariance("eqr50k")
+    r = compute_equivariance_metrics(opts, num_samples=50000, batch_size=4,
+                                     compute_eqr=True)
+    return {"eqr50k": r["eqr"]}
 
 
 @register_metric
 def eq100(opts):
-    """Cheap all-three equivariance eval (JAX: for smoke testing)."""
-    _equivariance("eq100")
+    """Cheap all-three equivariance eval for smoke testing / training."""
+    return compute_equivariance_metrics(
+        opts, num_samples=100, batch_size=4, compute_eqt_int=True,
+        compute_eqt_frac=True, compute_eqr=True)
 
 
 @register_metric

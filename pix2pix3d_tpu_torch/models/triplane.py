@@ -300,10 +300,6 @@ class _TriPlaneBase(nn.Module):
             out = self.renderer(planes, self.decoder, ray_origins, ray_directions,
                                 rk, generator=generator, det=det)
             return (*out, ray_directions)
-        if rk.get("frustum_tiles") is not None:
-            raise NotImplementedError(
-                "rendering_kwargs['frustum_tiles'] (per-output-tile "
-                "sub-windows) is not ported yet: ROADMAP.md Queue 1 item 7")
         impl = rk.get("decoder_impl")
         if impl not in DECODER_IMPLS:
             raise ValueError(f"rendering_kwargs['decoder_impl'] {impl!r} is not "
@@ -323,6 +319,7 @@ class _TriPlaneBase(nn.Module):
             depth_steps=rk.get("frustum_depth_steps"),
             chunk=rk.get("frustum_chunk"),
             window=rk.get("frustum_window"),
+            tiles=rk.get("frustum_tiles"),
             compute_dtype=(torch.bfloat16 if rk.get("frustum_bf16", True)
                            else torch.float32),
             fused_decoder=fused)

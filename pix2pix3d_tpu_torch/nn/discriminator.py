@@ -1,12 +1,15 @@
 """Discriminators, port of `pix2pix3d_tpu/nn/discriminator.py` (ref
 `networks_stylegan2.py:559-796`, `training/dual_discriminator.py`), NCHW.
 
-The resnet architecture, the one every shipped config builds: the mask
-encoder of the conditional mapping network is made of `DiscriminatorBlock`s,
-and training runs two `DualDiscriminator`s (D over [image | raw], and
-D_semantic over [image | semantic]).  Blocks at the `num_fp16_res` highest
-resolutions run in bfloat16 tensors, as in the JAX package; the epilogue
-runs in f32.
+Blocks and the epilogue take the reference's three architectures: 'resnet'
+(the one every shipped config builds: the mask encoder of the conditional
+mapping network is made of `DiscriminatorBlock`s, and training runs two
+`DualDiscriminator`s, D over [image | raw] and D_semantic over [image |
+semantic]), 'skip' (a FromRGB in every block and the epilogue, the image
+downsampled alongside) and 'orig' (a FromRGB in the first block only), which
+legacy TensorFlow pickles select (`utils/legacy_tf.py`).  Blocks at the
+`num_fp16_res` highest resolutions run in bfloat16 tensors, as in the JAX
+package; the epilogue runs in f32.
 
 Inputs are NCHW image dicts `{"image": [N, C, H, W], "image_raw": [N, C, h,
 w]}`.  The epilogue's `fc` flattens its `[N, C, 4, 4]` input in the JAX
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..ops.resize import resize_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
-from .layers import Conv2d, FullyConnected, minibatch_stddev
+from .layers import Conv2d, FullyConnected, check_architecture, minibatch_stddev
 from .mapping import MappingNetwork
 
 
@@ -38,22 +41,28 @@ def draw_normal(generator, shape, device):
 
 
 class DiscriminatorBlock(nn.Module):
-    """Resnet downsampling block (ref `networks_stylegan2.py:559-643`)."""
+    """Downsampling block (ref `networks_stylegan2.py:559-643`).  Training
+    updates every layer, in the port as in the JAX package, so
+    `freeze_layers` (a legacy pickle's kwarg) is refused unless it is 0."""
 
     def __init__(self, in_channels, tmp_channels, out_channels, img_channels,
                  activation="lrelu", resample_filter=(1, 3, 3, 1), conv_clamp=None,
-                 use_fp16=False, architecture="resnet"):
+                 use_fp16=False, architecture="resnet", freeze_layers=0):
         super().__init__()
         if in_channels not in (0, tmp_channels):
             raise ValueError("in_channels must be 0 or tmp_channels")
-        if architecture != "resnet":
-            raise NotImplementedError(
-                f"architecture {architecture!r}: the port builds the resnet "
-                "discriminator, the one every shipped config uses")
+        check_architecture(architecture)
+        if freeze_layers:
+            raise ValueError(f"freeze_layers={freeze_layers}: training updates "
+                             "every layer, so only 0 is accepted")
         self.in_channels = in_channels
+        self.architecture = architecture
         self.use_fp16 = use_fp16
+        self.register_buffer("resample_filter",
+                             setup_filter(list(resample_filter)),
+                             persistent=False)
         self.fromrgb = None
-        if in_channels == 0:
+        if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2d(img_channels, tmp_channels, kernel_size=1,
                                   activation=activation, conv_clamp=conv_clamp)
         self.conv0 = Conv2d(tmp_channels, tmp_channels, kernel_size=3,
@@ -61,23 +70,32 @@ class DiscriminatorBlock(nn.Module):
         self.conv1 = Conv2d(tmp_channels, out_channels, kernel_size=3,
                             activation=activation, down=2,
                             resample_filter=resample_filter, conv_clamp=conv_clamp)
-        self.skip = Conv2d(tmp_channels, out_channels, kernel_size=1, bias=False,
-                           down=2, resample_filter=resample_filter)
+        self.skip = None
+        if architecture == "resnet":
+            self.skip = Conv2d(tmp_channels, out_channels, kernel_size=1, bias=False,
+                               down=2, resample_filter=resample_filter)
 
     def forward(self, x, img, force_fp32=False):
-        """x `[N, C, H, W]` or None (first block), img the input image;
-        returns (x at half resolution, None)."""
+        """x `[N, C, H, W]` or None (first block), img the input image (with
+        'skip', this resolution's); returns (x at half resolution, the image
+        downsampled with 'skip', else img, None after a FromRGB)."""
         dtype = (torch.bfloat16 if (self.use_fp16 and not force_fp32)
                  else torch.float32)
         if x is not None:
             x = x.to(dtype)
-        if self.in_channels == 0:
-            y = self.fromrgb(img.to(dtype))
+        if self.fromrgb is not None:
+            img = img.to(dtype)
+            y = self.fromrgb(img)
             x = x + y if x is not None else y
-        y = self.skip(x, gain=math.sqrt(0.5))
+            img = (downsample2d(img, self.resample_filter)
+                   if self.architecture == "skip" else None)
+        if self.skip is not None:
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x)
+            x = self.conv1(x, gain=math.sqrt(0.5))
+            return y + x, img
         x = self.conv0(x)
-        x = self.conv1(x, gain=math.sqrt(0.5))
-        return y + x, None
+        return self.conv1(x), img
 
 
 class DiscriminatorEpilogue(nn.Module):
@@ -88,11 +106,14 @@ class DiscriminatorEpilogue(nn.Module):
                  architecture="resnet", mbstd_group_size=4, mbstd_num_channels=1,
                  activation="lrelu", conv_clamp=None, **unused_kwargs):
         super().__init__()
-        if architecture != "resnet":
-            raise NotImplementedError(f"architecture {architecture!r}")
+        check_architecture(architecture)
         self.cmap_dim = cmap_dim
         self.mbstd_group_size = mbstd_group_size
         self.mbstd_num_channels = mbstd_num_channels
+        self.fromrgb = None
+        if architecture == "skip":
+            self.fromrgb = Conv2d(img_channels, in_channels, kernel_size=1,
+                                  activation=activation)
         self.conv = Conv2d(in_channels + mbstd_num_channels, in_channels,
                            kernel_size=3, activation=activation, conv_clamp=conv_clamp)
         self.fc = FullyConnected(in_channels * resolution ** 2, in_channels,
@@ -101,6 +122,8 @@ class DiscriminatorEpilogue(nn.Module):
 
     def forward(self, x, img, cmap, force_fp32=False):
         x = x.float()
+        if self.fromrgb is not None:
+            x = x + self.fromrgb(img.float())
         if self.mbstd_num_channels > 0:
             x = minibatch_stddev(x, self.mbstd_group_size, self.mbstd_num_channels)
         x = self.conv(x)

@@ -25,6 +25,13 @@ from ..ops.conv2d_resample import conv2d_resample
 from ..ops.upfirdn2d import setup_filter
 
 
+def check_architecture(architecture):
+    """The reference's block architectures: 'orig', 'skip', 'resnet'."""
+    if architecture not in ("orig", "skip", "resnet"):
+        raise ValueError(f"architecture {architecture!r} is not 'orig', "
+                         "'skip' or 'resnet'")
+
+
 def normalize_2nd_moment(x, dim=1, eps=1e-8):
     """PixelNorm (ref `networks_stylegan2.py:27-29`)."""
     return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
@@ -71,14 +78,15 @@ class FullyConnected(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Equalized-lr conv with optional FIR downsampling (ref `Conv2dLayer`;
-    the port's callers never upsample through it)."""
+    """Equalized-lr conv with optional FIR up/downsampling (ref
+    `Conv2dLayer`)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, bias=True,
-                 activation="linear", down=1, resample_filter=(1, 3, 3, 1),
+                 activation="linear", up=1, down=1, resample_filter=(1, 3, 3, 1),
                  conv_clamp=None):
         super().__init__()
         self.activation = activation
+        self.up = up
         self.down = down
         self.conv_clamp = conv_clamp
         self.register_buffer("resample_filter",
@@ -100,7 +108,8 @@ class Conv2d(nn.Module):
     def forward(self, x, gain=1.0):
         w = self.weight * self.weight_gain
         x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter,
-                            down=self.down, padding=self.padding)
+                            up=self.up, down=self.down, padding=self.padding,
+                            flip_weight=self.up == 1)
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, dim=1, act=self.activation,
                         gain=self.act_gain * gain, clamp=act_clamp)

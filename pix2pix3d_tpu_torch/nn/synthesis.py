@@ -5,8 +5,10 @@ Blocks flagged `use_fp16` run in bfloat16 tensors, as in the JAX package;
 `force_fp32=True` runs everything in f32 for parity checks.  Noise is
 'random' (the default, as in the JAX package: a fresh `[N, 1, res, res]`
 normal draw from an explicit `torch.Generator`, times `noise_strength`),
-'const' (the `noise_const` buffers) or 'none'.  Blocks use the 'skip'
-architecture, the one pix2pix3D builds.
+'const' (the `noise_const` buffers) or 'none'.  Blocks take the
+reference's three architectures: 'skip' (the one pix2pix3D builds: a ToRGB
+in every block, the image upsampled and summed), 'orig' (ToRGB in the last
+block only) and 'resnet' (a 1x1 up-convolution skip of x, gain sqrt(1/2)).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.upfirdn2d import setup_filter, upsample2d
-from .layers import FullyConnected, modulated_conv2d, randn
+from .layers import (Conv2d, FullyConnected, check_architecture, modulated_conv2d,
+                     randn)
 from .mapping import MappingNetwork
 
 
@@ -113,35 +116,48 @@ class ToRGBLayer(nn.Module):
 
 
 class SynthesisBlock(nn.Module):
-    """Two synthesis layers + skip-architecture ToRGB (ref
-    `networks_stylegan2.py:367-463`).  `up=1` gives the SR stacks'
-    `SynthesisBlockNoUp` (no upsampling of x or img)."""
+    """Two synthesis layers and a ToRGB, in the 'orig', 'skip' or 'resnet'
+    architecture (ref `networks_stylegan2.py:367-463`).  `up=1` gives the
+    SR stacks' `SynthesisBlockNoUp` (no upsampling of x or img)."""
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, img_channels,
-                 resample_filter=(1, 3, 3, 1), conv_clamp=256, use_fp16=False, up=2):
+                 is_last=True, architecture="skip", resample_filter=(1, 3, 3, 1),
+                 conv_clamp=256, use_fp16=False, up=2, use_noise=True,
+                 activation="lrelu"):
         super().__init__()
+        check_architecture(architecture)
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.resolution = resolution
+        self.is_last = is_last
+        self.architecture = architecture
         self.use_fp16 = use_fp16
         self.up = up
         self.register_buffer("resample_filter",
                              setup_filter(list(resample_filter)),
                              persistent=False)
+        layer_kwargs = dict(w_dim=w_dim, resolution=resolution,
+                            conv_clamp=conv_clamp, use_noise=use_noise,
+                            activation=activation)
         self.num_conv = 0
         self.conv0 = None
         if in_channels != 0:
-            self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim=w_dim,
-                                        resolution=resolution, up=up,
+            self.conv0 = SynthesisLayer(in_channels, out_channels, up=up,
                                         resample_filter=resample_filter,
-                                        conv_clamp=conv_clamp)
+                                        **layer_kwargs)
             self.num_conv += 1
-        self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim=w_dim,
-                                    resolution=resolution, conv_clamp=conv_clamp)
+        self.conv1 = SynthesisLayer(out_channels, out_channels, **layer_kwargs)
         self.num_conv += 1
-        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim=w_dim,
-                                conv_clamp=conv_clamp)
-        self.num_torgb = 1
+        self.torgb = None
+        self.num_torgb = 0
+        if is_last or architecture == "skip":
+            self.torgb = ToRGBLayer(out_channels, img_channels, w_dim=w_dim,
+                                    conv_clamp=conv_clamp)
+            self.num_torgb = 1
+        self.skip = None
+        if in_channels != 0 and architecture == "resnet":
+            self.skip = Conv2d(in_channels, out_channels, kernel_size=1,
+                               bias=False, up=up, resample_filter=resample_filter)
         if in_channels == 0:
             self.const = nn.Parameter(torch.empty(out_channels, resolution,
                                                   resolution))
@@ -158,18 +174,25 @@ class SynthesisBlock(nn.Module):
                              f"got {ws.shape[1]}")
         dtype = _dtype(self.use_fp16, force_fp32)
         w_iter = iter(ws.unbind(dim=1))
+        layer = dict(noise_mode=noise_mode, generator=generator)
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].repeat(ws.shape[0], 1, 1, 1)
+            x = self.conv1(x, next(w_iter), **layer)
+        elif self.architecture == "resnet":
+            x = x.to(dtype)
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x, next(w_iter), **layer)
+            x = self.conv1(x, next(w_iter), gain=math.sqrt(0.5), **layer)
+            x = y + x
         else:
-            x = self.conv0(x.to(dtype), next(w_iter), noise_mode=noise_mode,
-                           generator=generator)
-        x = self.conv1(x, next(w_iter), noise_mode=noise_mode,
-                       generator=generator)
+            x = self.conv0(x.to(dtype), next(w_iter), **layer)
+            x = self.conv1(x, next(w_iter), **layer)
 
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter)
-        y = self.torgb(x, next(w_iter)).float()
-        img = img + y if img is not None else y
+        if self.torgb is not None:
+            y = self.torgb(x, next(w_iter)).float()
+            img = img + y if img is not None else y
         return x, img
 
 
@@ -188,13 +211,15 @@ class SynthesisNetwork(nn.Module):
         fp16_resolution = max(2 ** (log2 + 1 - num_fp16_res), 8)
         self.num_ws = 0
         for res in self.block_resolutions:
+            is_last = res == img_resolution
             block = SynthesisBlock(
                 channels_dict[res // 2] if res > 4 else 0, channels_dict[res],
                 w_dim=w_dim, resolution=res, img_channels=img_channels,
-                use_fp16=res >= fp16_resolution, **block_kwargs)
-            self.num_ws += block.num_conv
+                is_last=is_last, use_fp16=res >= fp16_resolution, **block_kwargs)
+            # a block's ToRGB shares the next block's first w; the last one's
+            # has its own
+            self.num_ws += block.num_conv + (block.num_torgb if is_last else 0)
             self.add_module(f"b{res}", block)
-        self.num_ws += 1  # the last block's ToRGB
 
     def forward(self, ws, force_fp32=False, noise_mode="random", generator=None):
         if ws.shape[1] != self.num_ws or ws.shape[2] != self.w_dim:

@@ -13,11 +13,13 @@ Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
      decoder params are given, else the unfused decode/composite below.
 
 Layouts follow the JAX package: planes `[N, 3, S, S, C]` feature-last,
-textures `[S, S, C]`.  The window specs and the NaN-poison coverage guard
-stay as the JAX package has them, and so does the per-chunk
-rematerialization of training (`frustum_remat`).  Per-output-tile sub-windows
-(`rendering_kwargs['frustum_tiles']`, opt-in there) are not ported; the
-generator refuses the key.
+textures `[S, S, C]`.  The contraction windows (one per chunk, `window`, or
+per output tile, `tiles` = `rendering_kwargs['frustum_tiles']`, opt-in as in
+JAX), the NaN-poison coverage guard and the per-chunk rematerialization of
+training (`frustum_remat`) stay as the JAX package has them.  A window's
+start depends on the depths, so the host reads it to slice the texture: each
+`slab_resample` call reduces its windows' smallest centers on the device and
+reads them all with one host copy.
 """
 
 from __future__ import annotations
@@ -153,55 +155,104 @@ def shear_texture(tex, a, b, compute_dtype=torch.float32):
     return t2t.transpose(0, 1)
 
 
-def _win_start(centers, in_len, w):
-    """Start of a window of length `w` covering `centers`' taps:
-    floor(min)-2 slack, clipped to the input, rounded down to a multiple of
-    8 (as the JAX package does for the TPU's tiled layout)."""
-    lo = float(torch.floor(centers.min()).item()) - 2.0
-    if math.isnan(lo):
+def _win_start(lo_center, in_len, w):
+    """Start of a window of length `w` covering taps whose smallest center
+    is `lo_center` (a host float): floor(min)-2 slack, clipped to the input,
+    rounded down to a multiple of 8 (as the JAX package does for the TPU's
+    tiled layout)."""
+    if math.isnan(lo_center):
         return 0  # NaN-poisoned depths: the render is NaN whatever the window
+    lo = math.floor(lo_center) - 2.0
     return (int(min(max(lo, 0.0), float(in_len - w))) // 8) * 8
 
 
+def _tile_mins(c, group):
+    """The smallest center of each tile of `group` outputs of c [T, nrr]."""
+    return [c[:, i0:i0 + group].amin() for i0 in range(0, c.shape[1], group)]
+
+
 def slab_resample(t2, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32,
-                  win=None, channels_first=False):
+                  win=None, tiles=None, channels_first=False):
     """Per-slab axis-aligned scale+translate of the sheared texture.
 
     t2 [ext, ext, C], t_vals [T] -> [T, nrr, nrr, C] (or [T, C, nrr, nrr]
     with `channels_first`), f32:
       out[t, i, j] = t2 sampled at (y = t*d2*i + F_y(t), x = t*d1*j + F_x(t)).
     `win=(win_y, win_x)` contracts only a window that covers every tap --
-    mathematically identical to the full contraction."""
+    mathematically identical to the full contraction.
+    `tiles=(gi, wy_t, gj, wx_t, wxu)`: per-output-tile sub-windows (JAX
+    `render/frustum.py:216-263`): a `wxu`-texel union x-window, then stage 1
+    per tile of `gi` output rows on its own `wy_t`-texel y-window, stage 2
+    per tile of `gj` output columns on its own `wx_t`-texel x-window of the
+    stage-1 intermediate; identical to the full contraction wherever the
+    coverage guard passes."""
     ext = t2.shape[0]
     ii = torch.arange(nrr, dtype=torch.float32, device=t2.device)
     cy = t_vals[:, None] * d2 * ii[None, :] + (F0[1] + t_vals[:, None] * F1[1]) \
         + MARGIN                                               # [T, nrr]
     cx = t_vals[:, None] * d1 * ii[None, :] + (F0[0] + t_vals[:, None] * F1[0]) \
         + MARGIN
+    T, C = t_vals.shape[0], t2.shape[2]
+    if tiles is not None:
+        return _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first)
     ext_y = ext_x = ext
     if win is not None and min(win) < ext:
         win_y, win_x = min(win[0], ext), min(win[1], ext)
-        y0 = _win_start(cy, ext, win_y)
-        x0 = _win_start(cx, ext, win_x)
+        lo_y, lo_x = torch.stack([cy.amin(), cx.amin()]).tolist()
+        y0, x0 = _win_start(lo_y, ext, win_y), _win_start(lo_x, ext, win_x)
         t2 = t2[y0:y0 + win_y, x0:x0 + win_x]
         cy = cy - y0
         cx = cx - x0
         ext_y, ext_x = win_y, win_x
-    T, C = t_vals.shape[0], t2.shape[2]
     Wy = _band_weights(cy, ext_y, dtype=compute_dtype)         # [T, nrr, wy]
     Wx = _band_weights(cx, ext_x, dtype=compute_dtype)         # [T, nrr, wx]
     # stage 1: v[t, i, x, c] = sum_y Wy[t, i, y] t2[y, x, c]
     v = torch.matmul(Wy, t2.to(compute_dtype).reshape(ext_y, ext_x * C))
-    v = v.reshape(T, nrr, ext_x, C)
-    # stage 2: out[t, i, j, c] = sum_x Wx[t, j, x] v[t, i, x, c]
+    return _stage2(v.reshape(T, nrr, ext_x, C), Wx, channels_first)
+
+
+def _stage2(v, Wx, channels_first):
+    """out[t, i, j, c] = sum_x Wx[t, j, x] v[t, i, x, c]: [T, nrr, J, C], or
+    [T, C, nrr, J] for the fused decode+composite kernel, f32."""
+    T, nrr, X, C = v.shape
     if channels_first:
-        # [T, C, nrr(i), nrr(j)] for the fused decode+composite kernel
-        vt = v.permute(0, 3, 1, 2).reshape(T, C * nrr, ext_x)
+        vt = v.permute(0, 3, 1, 2).reshape(T, C * nrr, X)
         out = torch.bmm(vt, Wx.transpose(1, 2))                # [T, C*i, j]
-        return out.float().reshape(T, C, nrr, nrr)
-    vt = v.reshape(T, nrr, ext_x, C)
-    out = torch.einsum("tjx,tixc->tijc", Wx, vt)
-    return out.float()
+        return out.float().reshape(T, C, nrr, -1)
+    return torch.einsum("tjx,tixc->tijc", Wx, v).float()
+
+
+def _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first):
+    """`slab_resample` with `tiles`; the smallest centers of every window
+    of the call are read with one host copy.  The j-tiles' x-windows lie in
+    the union window: their starts come from their centers less the union's
+    start, which subtracts exactly in f32 (an integer from values below
+    2^24), so min and shift commute as JAX's shift-then-min has it."""
+    ext, C = t2.shape[0], t2.shape[2]
+    T, nrr = cy.shape
+    gi, wy_t, gj, wx_t, wxu = tiles
+    wxu = min(wxu, ext)
+    wy_t = min(wy_t, ext)
+    wx_t = min(wx_t, wxu)
+    y_mins, x_mins = _tile_mins(cy, gi), _tile_mins(cx, gj)
+    mins = torch.stack(y_mins + x_mins + [cx.amin()]).tolist()
+    y0s = [_win_start(m, ext, wy_t) for m in mins[:len(y_mins)]]
+    x0u = _win_start(mins[-1], ext, wxu) if wxu < ext else 0
+    x0s = [_win_start(m - x0u, wxu, wx_t) for m in mins[len(y_mins):-1]]
+    cx = cx - x0u
+    t2 = t2[:, x0u:x0u + wxu].to(compute_dtype)
+    # stage 1: per-i-tile y-windows, y contracted, x carried
+    vs = []
+    for i0, y0 in zip(range(0, nrr, gi), y0s):
+        Wy = _band_weights(cy[:, i0:i0 + gi] - y0, wy_t, dtype=compute_dtype)
+        vs.append(torch.matmul(Wy, t2[y0:y0 + wy_t].reshape(wy_t, wxu * C)))
+    v = torch.cat(vs, dim=1).reshape(T, nrr, wxu, C)
+    # stage 2: per-j-tile x-windows sliced from the intermediate
+    outs = []
+    for j0, x0 in zip(range(0, nrr, gj), x0s):
+        Wx = _band_weights(cx[:, j0:j0 + gj] - x0, wx_t, dtype=compute_dtype)
+        outs.append(_stage2(v[:, :, x0:x0 + wx_t], Wx, channels_first))
+    return torch.cat(outs, dim=-1 if channels_first else 2)
 
 
 def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
@@ -220,7 +271,7 @@ def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
 
 
 def sample_slabs_prepared(prep, t_vals, nrr, compute_dtype=torch.float32,
-                          win=None, channels_first=False):
+                          win=None, tiles=None, channels_first=False):
     """[N, T, nrr, nrr, C] (or [N, T, C, nrr, nrr]) mean-over-planes
     features for depth values t_vals [N, T], in compute_dtype."""
     n, q = prep["n"], prep["q"]
@@ -231,26 +282,26 @@ def sample_slabs_prepared(prep, t_vals, nrr, compute_dtype=torch.float32,
             k = i * q + qi
             acc = acc + slab_resample(prep["tex"][k], t_vals[i], prep["d1"][k],
                                       prep["d2"][k], prep["F0"][k], prep["F1"][k],
-                                      nrr, compute_dtype, win=win,
+                                      nrr, compute_dtype, win=win, tiles=tiles,
                                       channels_first=channels_first)
         out.append((acc / q).to(compute_dtype))
     return torch.stack(out)
 
 
-def window_coverage_violation(prep, t_vals, nrr, win, chunk):
+def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
     """0-dim bool tensor: does ANY chunk's contraction window miss a tap the
     full contraction would use?  Mirrors `slab_resample`'s window math
     (same centers, same floor/clip/multiple-of-8 start) outside the hot
     loop; off-texture centers give zeros on both paths, so they are clipped
-    to the texture before the comparison."""
+    to the texture before the comparison.  With `tiles`, checks the tiled
+    path: per-i-tile y-windows and the union x-window against the texture,
+    per-j-tile x-windows against the union window."""
     ext = prep["tex"].shape[1]
     n, q = prep["n"], prep["q"]
     dev = t_vals.device
-    win_y, win_x = min(win[0], ext), min(win[1], ext)
-    if win_y >= ext and win_x >= ext:
-        return torch.zeros((), dtype=torch.bool, device=dev)
     ii = torch.arange(nrr, dtype=torch.float32, device=dev)
     ch = t_vals.reshape(n, -1, chunk)                         # [N, CH, TC]
+    no = torch.zeros((), dtype=torch.bool, device=dev)
 
     def centers(d, f0, f1):
         d = d.reshape(n, q)[:, :, None, None, None]
@@ -259,21 +310,51 @@ def window_coverage_violation(prep, t_vals, nrr, win, chunk):
         t = ch[:, None, :, :, None]
         return t * d * ii + f0 + t * f1 + MARGIN              # [N, q, CH, TC, nrr]
 
-    def win_bad(c, win_len):
-        cc = c.clamp(0.0, ext - 1.0)
-        lo = torch.floor(c.amin(dim=(3, 4))) - 2.0
-        start = torch.floor(lo.clamp(0, ext - win_len) / 8) * 8
-        hi_bad = cc.amax(dim=(3, 4)) > start + (win_len - 1.0)
-        lo_bad = cc.amin(dim=(3, 4)) < start
+    def start(c, red, in_len, win_len):
+        lo = torch.floor(c.amin(dim=red)) - 2.0
+        return torch.floor(lo.clamp(0, in_len - win_len) / 8) * 8
+
+    def win_bad(c, cc, in_len, win_len, group=None):
+        """Coverage failure of the window over the trailing output axis
+        (optionally split into tiles of `group` outputs).  `c` drives the
+        start (the resample uses UNCLIPPED centers); `cc` holds the
+        texture-clipped centers whose taps carry weight.  Both may be offset
+        into a parent window whose extent is `in_len`."""
+        red = (3, 4)
+        if group is not None:
+            c = c.reshape(*c.shape[:4], -1, group)
+            cc = cc.reshape(*cc.shape[:4], -1, group)
+            red = (3, 5)
+        s = start(c, red, in_len, win_len)
+        hi_bad = cc.amax(dim=red) > s + (win_len - 1.0)
+        lo_bad = cc.amin(dim=red) < s
         return (hi_bad | lo_bad).any()
 
-    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    if tiles is None and min(win) >= ext:
+        return no
+    cy = centers(prep["d2"], prep["F0"][:, 1], prep["F1"][:, 1])
+    cx = centers(prep["d1"], prep["F0"][:, 0], prep["F1"][:, 0])
+    if tiles is not None:
+        gi, wy_t, gj, wx_t, wxu = tiles
+        wxu, wy_t = min(wxu, ext), min(wy_t, ext)
+        wx_t = min(wx_t, wxu)
+        bad = win_bad(cy, cy.clamp(0.0, ext - 1.0), ext, wy_t, group=gi) \
+            if wy_t < ext else no
+        ccx = cx.clamp(0.0, ext - 1.0)
+        if wxu < ext:
+            bad = bad | win_bad(cx, ccx, ext, wxu)
+            x0u = start(cx, (3, 4), ext, wxu)[..., None, None]
+            cx, ccx = cx - x0u, ccx - x0u
+        if wx_t < wxu:
+            bad = bad | win_bad(cx, ccx, wxu, wx_t, group=gj)
+        return bad
+
+    win_y, win_x = min(win[0], ext), min(win[1], ext)
+    bad = no
     if win_y < ext:
-        bad = bad | win_bad(centers(prep["d2"], prep["F0"][:, 1], prep["F1"][:, 1]),
-                            win_y)
+        bad = bad | win_bad(cy, cy.clamp(0.0, ext - 1.0), ext, win_y)
     if win_x < ext:
-        bad = bad | win_bad(centers(prep["d1"], prep["F0"][:, 0], prep["F1"][:, 0]),
-                            win_x)
+        bad = bad | win_bad(cx, cx.clamp(0.0, ext - 1.0), ext, win_x)
     return bad
 
 
@@ -315,10 +396,12 @@ def composite_step(carry, colors, sigmas, depths):
 
 
 def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
-                   nrr, depth_steps=None, chunk=None, window=None,
+                   nrr, depth_steps=None, chunk=None, window=None, tiles=None,
                    compute_dtype=torch.float32, fused_decoder=None):
     """Gather-free render -> (features [N, R, 64], depth [N, R, 1],
-    weights [N, R, 1]), as `ImportanceRenderer` returns them.
+    weights [N, R, 1]), as `ImportanceRenderer` returns them.  `tiles`
+    (gi, wy, gj, wx, union) selects per-output-tile windows; without it or
+    `window`, `default_window` picks one per chunk.
 
     decoder(feats [N, 1, M, C], dirs [N, M, 3]) -> {'rgb', 'sigma'} is used
     by the unfused path.  fused_decoder = (w1t, b1, w2t, b2, sem_sigmoid)
@@ -333,7 +416,7 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     chunk = chunk or min(T, 8)
     if T % chunk:
         raise ValueError(f"depth steps {T} not a multiple of chunk {chunk}")
-    if window is None:
+    if window is None and tiles is None:
         window = default_window(S, opts["box_warp"], nrr, chunk, T)
     dev = planes.device
 
@@ -358,14 +441,15 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     # Coverage guard for the windowed contraction: a camera outside the
     # calibrated envelope NaN-poisons the depth grid (and so the render)
     # instead of silently fading to zero.
-    bad = window_coverage_violation(prep, t_vals, nrr, window, chunk)
+    bad = window_coverage_violation(prep, t_vals, nrr, window, chunk, tiles=tiles)
     t_vals = t_vals + torch.where(bad, float("nan"), 0.0) * 0.0
 
     if fused_decoder is not None:
         ch_n = T // chunk
         feats = torch.stack([
             sample_slabs_prepared(prep, t_vals[:, k * chunk:(k + 1) * chunk], nrr,
-                                  compute_dtype, win=window, channels_first=True)
+                                  compute_dtype, win=window, tiles=tiles,
+                                  channels_first=True)
             .reshape(n, chunk, -1, r)
             for k in range(ch_n)])                            # [CH, N, TC, C, r]
         w1t, b1, w2t, b2, sem_sig = fused_decoder
@@ -377,7 +461,8 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
                          opts)
 
     def decode_chunk(t_chunk):
-        feats = sample_slabs_prepared(prep, t_chunk, nrr, compute_dtype, win=window)
+        feats = sample_slabs_prepared(prep, t_chunk, nrr, compute_dtype, win=window,
+                                      tiles=tiles)
         tc = t_chunk.shape[1]
         feats = feats.reshape(n, 1, tc * r, -1).to(compute_dtype)
         dirs_b = dirs[:, None].expand(n, tc, r, 3).reshape(n, tc * r, 3)

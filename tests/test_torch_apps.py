@@ -350,18 +350,37 @@ def test_released_config_forward_matches_jax(name):
     assert got["semantic"].shape[-1] == (1 if edge else 19)
 
 
-def test_unported_configs_raise():
-    """What the apps' generator still refuses: per-output-tile frustum
-    sub-windows (ROADMAP Queue 1 item 7).  The entangled
-    mappings and 256² that this test once refused build now and meet JAX
-    (`test_formerly_unported_configs_match_jax`)."""
-    cfg = _small_cfg(tconfig)
-    cfg["rendering_kwargs"].update(sampler="frustum", frustum_tiles=(8, 96, 8, 96, 256))
-    Gt = tbuild(device="cpu", **cfg)
-    _, _, pose = _inputs(0)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Gt.synthesis(None, torch.from_numpy(pose)[None], neural_rendering_resolution=16,
-                     planes=torch.zeros(1, 3, 16, 16, 32))
+def test_unported_configs_raise(generators):
+    """The apps' generator with per-output-tile frustum sub-windows (the
+    test keeps the name it had when the port refused them): the port's
+    `generate_sample` through the frustum sampler with `frustum_tiles` (f32
+    slabs, the unfused decoder) meets JAX's mapping and synthesis (jitted:
+    JAX's eager tiles take a minute); tiles too small for the camera
+    NaN-poison the render (the guard is held against JAX's in
+    tests/test_torch_render.py)."""
+    G, params, Gt = generators
+    saved = [dict(g.rendering_kwargs) for g in (G, Gt)]
+    z, mask, pose = _inputs(0)
+    mask_in, pose_in = jnp.asarray(mask)[None], jnp.asarray(pose)[None]
+    ws = G.mapping(params, jnp.asarray(z), pose_in, {"mask": mask_in, "pose": pose_in})
+    try:
+        for tiles, poisoned in (((8, 128, 8, 128, 448), False), ((8, 8, 8, 8, 32), True)):
+            for g in (G, Gt):
+                g.rendering_kwargs.update(sampler="frustum", frustum_bf16=False,
+                                          frustum_tiles=tiles)
+            got = tsamples.generate_sample(Gt, APP, mask, pose, z=z)
+            if poisoned:
+                for key in ("image_raw", "image_depth", "semantic_raw"):
+                    assert torch.isnan(got[key]).all(), key
+                continue
+            want = jax.jit(lambda p, w: G.synthesis(
+                p, w, pose_in, neural_rendering_resolution=32, noise_mode="const",
+                det=True))(params, ws)
+            _assert_outputs_close(got, want)
+    finally:
+        for g, old in zip((G, Gt), saved):
+            g.rendering_kwargs.clear()
+            g.rendering_kwargs.update(old)
 
 
 def _formerly_unported(name):

@@ -172,8 +172,25 @@ def test_import_rules_cover_the_trainer():
         assert PORT / "utils" / f"{name}.py" in sources, name
     for name in ("metric_utils", "frechet_inception_distance", "miou", "inception",
                  "kernel_inception_distance", "precision_recall", "inception_score",
-                 "perceptual_path_length", "metric_main"):
+                 "perceptual_path_length", "metric_main", "equivariance"):
         assert PORT / "metrics" / f"{name}.py" in sources, name
+
+
+# the JAX package's Pallas modules and their ports (hand-written kernels)
+KERNEL_MODULES = {"ops/render_pallas.py": "ops/decode_composite.py",
+                  "ops/decoder_pallas.py": "ops/late_separate_decode.py"}
+
+
+def test_every_jax_module_has_a_counterpart_under_the_import_rules():
+    """Each module of the JAX package (StyleGAN3, filtered_lrelu, the
+    equivariance metrics and the legacy TF converter included) has a port
+    module at the same path, or its kernel's, and the import checks read it."""
+    sources = set(_port_sources())
+    jax_pkg = ROOT / "pix2pix3d_tpu"
+    modules = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py"))
+    assert "nn/stylegan3.py" in modules and "utils/legacy_tf.py" in modules
+    for rel in modules:
+        assert PORT / KERNEL_MODULES.get(rel, rel) in sources, rel
 
 
 def test_port_imports_pil_only_inside_functions():

@@ -1,5 +1,5 @@
 """The generator's `rendering_kwargs` that the port honours as the JAX package
-does, or refuses: `frustum_window`, `sr_sem_f32`, `frustum_tiles`,
+does, or refuses: `frustum_window`, `frustum_tiles`, `sr_sem_f32`,
 `decoder_impl`.
 
 The generator is tests/test_torch_generator.py's small frustum configuration
@@ -65,11 +65,18 @@ def rk(generators):
         live.update(old)
 
 
-def _run_jax(G, params, req):
+def _run_jax(G, params, req, jit=False):
+    """JAX's forward, eager, or jitted where the eager path dispatches many
+    small ops (the tiled render: its jitted forward takes about half the
+    time of its eager one here)."""
     z, mask, pose = req
-    out = G(params, jnp.asarray(z), jnp.asarray(pose),
-            {"mask": jnp.asarray(mask), "pose": jnp.asarray(pose)},
-            neural_rendering_resolution=32, noise_mode="const", det=True)
+
+    def forward(params, z, pose, mask):
+        return G(params, z, pose, {"mask": mask, "pose": pose},
+                 neural_rendering_resolution=32, noise_mode="const", det=True)
+
+    out = (jax.jit(forward) if jit else forward)(
+        params, jnp.asarray(z), jnp.asarray(pose), jnp.asarray(mask))
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -134,10 +141,30 @@ def test_decoder_impl_ref_is_unfused(generators, rk):
         np.testing.assert_array_equal(ref[key], unfused[key], err_msg=key)
 
 
+@pytest.mark.parametrize("tiles,poisoned", [((8, 160, 8, 160, 448), False),
+                                            ((8, 96, 8, 96, 256), True)])
+def test_frustum_tiles_reach_the_render(generators, rk, tiles, poisoned):
+    """Per-output-tile windows that cover every tap give JAX's render
+    through the fused decode+composite; ones that miss taps NaN-poison the
+    render (the tiled coverage guard, held against JAX's in
+    tests/test_torch_render.py; JAX's render is compared where it is
+    finite).  Chunks of 16 of 48 slabs span three times the depth of the
+    serving chunks, so the tiles that cover the serving geometry (nrr//4,
+    96, nrr//4, 96, 256) miss taps here."""
+    G, params, Gt = generators
+    rk[0]["frustum_tiles"] = rk[1]["frustum_tiles"] = tiles
+    req = _request(np.pi / 2 + 0.15, np.pi / 2 - 0.1, 0)
+    got = _run_port(Gt, req)
+    want = None if poisoned else _run_jax(G, params, req, jit=True)
+    for key in F32_OUTPUTS:
+        assert np.isnan(got[key]).all() == poisoned, key
+        if not poisoned:
+            np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
+
+
 @pytest.mark.parametrize("key,value,error,match", [
     ("decoder_impl", "cuda", ValueError, "decoder_impl"),
     ("decoder_impl", "triton", ValueError, "decoder_impl"),
-    ("frustum_tiles", (8, 96, 8, 96, 256), NotImplementedError, "ROADMAP.md Queue 1"),
 ])
 def test_unported_rendering_kwargs_raise(generators, rk, key, value, error, match):
     _, _, Gt = generators

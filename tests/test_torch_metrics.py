@@ -7,7 +7,7 @@ generator or a network to compile.
   the port's radii come from `torch.cdist` on differences, other summation
   orders).
 - The registry: the same names in the same order; the equivariance names
-  raise.
+  pass JAX's arguments and run on a small StyleGAN3 generator.
 - The metric loops (`iterate_real_features`, `iterate_gen_features` on seg
   and edge data, `compute_miou`, `calc_metric("miou500")`, `compute_fid`,
   `compute_kid`, `compute_pr`, `compute_is`, `compute_ppl`) in both
@@ -106,13 +106,43 @@ def test_precision_recall_radii_and_fractions_match_jax(k):
 
 # --- the registry -------------------------------------------------------------
 
-def test_registry_matches_jax_and_refuses_equivariance():
+def test_registry_matches_jax_and_refuses_equivariance(monkeypatch):
+    """The registry: JAX's names in JAX's order.  The equivariance names run
+    `compute_equivariance_metrics` with JAX's arguments, on a small
+    `GeneratorS3` here with num_samples capped at 8 (their 50000 and 100
+    samples are the card's), and return JAX's keys.  The test keeps the
+    name it had when the port refused these four."""
     assert tmain.list_valid_metrics() == jmain.list_valid_metrics()
     assert all(tmain.is_valid_metric(m) for m in jmain.list_valid_metrics())
     assert not tmain.is_valid_metric("fid10k")
+    from pix2pix3d_tpu.metrics import equivariance as jeq
+    from pix2pix3d_tpu_torch.nn.stylegan3 import GeneratorS3
+    from pix2pix3d_tpu_torch.models.triplane import init_parameters
+
+    G = GeneratorS3(z_dim=8, c_dim=0, w_dim=8, img_resolution=16, img_channels=3,
+                    channel_base=256, channel_max=16, num_layers=4,
+                    mapping_kwargs=dict(num_layers=1))
+    init_parameters(G, torch.Generator().manual_seed(0))
+    calls = {"jax": [], "port": []}
+    real = tmain.compute_equivariance_metrics
+
+    def jax_args(opts, **kw):
+        calls["jax"].append(kw)
+        return {k: 0.0 for k in ("eqt_int", "eqt_frac", "eqr")}
+
+    def capped(opts, **kw):
+        calls["port"].append(dict(kw))
+        kw["num_samples"] = 8
+        return real(opts, **kw)
+
+    monkeypatch.setattr(jeq, "compute_equivariance_metrics", jax_args)
+    monkeypatch.setattr(tmain, "compute_equivariance_metrics", capped)
     for name in ("eqt50k_int", "eqt50k_frac", "eqr50k", "eq100"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tmain.calc_metric(name, device="cpu")
+        want = jmain.calc_metric(name)["results"]
+        got = tmain.calc_metric(name, G=G, device="cpu")["results"]
+        assert set(got) == set(want), name
+        assert all(np.isfinite(v) for v in got.values()), (name, got)
+    assert calls["port"] == calls["jax"]
 
 
 def test_metric_entry_points_default_to_the_card(monkeypatch):

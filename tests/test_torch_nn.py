@@ -300,3 +300,110 @@ def test_superresolution(name, img_ch, src):
     got = tm(t(rgb), t(x), t(ws), noise_mode="none")
     assert got.shape == (1, img_ch, res, res)
     np.testing.assert_allclose(got.detach().numpy(), from_nhwc(want), **TOL)
+
+
+# --- the reference's three block architectures ('orig', 'skip', 'resnet'):
+# legacy TensorFlow pickles select them (utils/legacy_tf.py) --------------
+
+@pytest.mark.parametrize("architecture", ["orig", "skip", "resnet"])
+@pytest.mark.parametrize("in_channels,is_last", [(0, False), (8, False), (8, True)])
+def test_synthesis_block_architectures(architecture, in_channels, is_last):
+    """ToRGB in every block ('skip') or the last one only; the resnet skip
+    (a 1x1 up-convolution, gain sqrt(1/2)); img upsampled only when given."""
+    kw = dict(in_channels=in_channels, out_channels=8, w_dim=16, resolution=16,
+              img_channels=3, is_last=is_last, architecture=architecture)
+    jm, tm = jsyn.SynthesisBlock(**kw), tsyn.SynthesisBlock(**kw)
+    params, tm = bridged(jm, tm)
+    assert (tm.num_conv, tm.num_torgb) == (jm.num_conv, jm.num_torgb)
+    rng = np.random.RandomState(14)
+    ws = rng.randn(2, tm.num_conv + tm.num_torgb, 16).astype(np.float32)
+    x = rng.randn(2, 8, 8, 8).astype(np.float32) if in_channels else None
+    # 'orig' carries no image until its last block
+    img = (rng.randn(2, 3, 8, 8).astype(np.float32)
+           if in_channels and architecture != "orig" else None)
+    wx, wimg = jax.jit(lambda p, x, img, ws: jm(p, x, img, ws, noise_mode="const"))(
+        params, None if x is None else nhwc(x), None if img is None else nhwc(img),
+        jnp.asarray(ws))
+    gx, gimg = tm(None if x is None else t(x), None if img is None else t(img),
+                  t(ws), noise_mode="const")
+    np.testing.assert_allclose(gx.detach().numpy(), from_nhwc(wx), **TOL)
+    assert (gimg is None) == (wimg is None)
+    if wimg is not None:
+        np.testing.assert_allclose(gimg.detach().numpy(), from_nhwc(wimg), **TOL)
+
+
+@pytest.mark.parametrize("architecture,layer_kw", [
+    ("orig", dict()), ("skip", dict(use_noise=False)),
+    ("resnet", dict(activation="relu", resample_filter=[1, 2, 1]))])
+def test_generator_architectures(architecture, layer_kw):
+    """Whole generators: num_ws counts what each architecture builds;
+    `use_noise`, `activation` and `resample_filter` reach the layers."""
+    kw = dict(z_dim=16, c_dim=0, w_dim=16, img_resolution=32, img_channels=3,
+              channel_base=256, channel_max=16, num_fp16_res=0,
+              architecture=architecture, mapping_kwargs={"num_layers": 2}, **layer_kw)
+    jm, tm = jsyn.Generator(**kw), tsyn.Generator(**kw)
+    params, tm = bridged(jm, tm)
+    assert tm.num_ws == jm.num_ws
+    z = np.random.RandomState(15).randn(2, 16).astype(np.float32)
+    want = jax.jit(lambda p, z: jm(p, z, None, noise_mode="const"))(params,
+                                                                    jnp.asarray(z))
+    got = tm(t(z), None, noise_mode="const")
+    np.testing.assert_allclose(got.detach().numpy(), from_nhwc(want), **TOL)
+
+
+@pytest.mark.parametrize("architecture", ["orig", "skip", "resnet"])
+@pytest.mark.parametrize("in_channels", [0, 8])
+def test_discriminator_block_architectures(architecture, in_channels):
+    """FromRGB in the first block (every block with 'skip', whose image is
+    downsampled alongside); the resnet skip; the image passes through."""
+    kw = dict(in_channels=in_channels, tmp_channels=8, out_channels=12,
+              img_channels=6, architecture=architecture)
+    jm = jdisc.DiscriminatorBlock(resolution=16, first_layer_idx=0, **kw)
+    tm = tdisc.DiscriminatorBlock(**kw)
+    params, tm = bridged(jm, tm)
+    rng = np.random.RandomState(16)
+    img = rng.randn(2, 6, 16, 16).astype(np.float32)
+    x = rng.randn(2, 8, 16, 16).astype(np.float32) if in_channels else None
+    wx, wimg = jax.jit(jm.__call__)(params, None if x is None else nhwc(x), nhwc(img))
+    gx, gimg = tm(None if x is None else t(x), t(img))
+    np.testing.assert_allclose(gx.numpy(), from_nhwc(wx), **TOL)
+    assert (gimg is None) == (wimg is None)
+    if wimg is not None:
+        np.testing.assert_allclose(gimg.numpy(), from_nhwc(wimg), **TOL)
+
+
+def test_discriminator_block_refuses_freeze_layers():
+    """Training updates every layer, so a nonzero `freeze_layers` (which a
+    legacy pickle may carry) is refused rather than dropped; 0 is taken."""
+    kw = dict(in_channels=0, tmp_channels=8, out_channels=8, img_channels=3)
+    assert tdisc.DiscriminatorBlock(freeze_layers=0, **kw).skip is not None
+    with pytest.raises(ValueError, match="freeze_layers=2"):
+        tdisc.DiscriminatorBlock(freeze_layers=2, **kw)
+
+
+@pytest.mark.parametrize("architecture", ["orig", "skip", "resnet"])
+def test_discriminator_epilogue_architectures(architecture):
+    kw = dict(in_channels=8, cmap_dim=0, resolution=4, img_channels=3,
+              architecture=architecture, mbstd_group_size=2)
+    jm, tm = jdisc.DiscriminatorEpilogue(**kw), tdisc.DiscriminatorEpilogue(**kw)
+    params, tm = bridged(jm, tm)
+    rng = np.random.RandomState(17)
+    x = rng.randn(4, 8, 4, 4).astype(np.float32)
+    img = rng.randn(4, 3, 4, 4).astype(np.float32)
+    want = jax.jit(lambda p, x, img: jm(p, x, img, None))(params, nhwc(x), nhwc(img))
+    got = tm(t(x), t(img), None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("architecture", ["orig", "skip", "resnet"])
+def test_discriminator_architectures(architecture):
+    kw = dict(c_dim=0, img_resolution=32, img_channels=3, architecture=architecture,
+              channel_base=256, channel_max=16, num_fp16_res=0, conv_clamp=None,
+              block_kwargs=dict(freeze_layers=0),
+              epilogue_kwargs=dict(mbstd_group_size=2))
+    jm, tm = jdisc.Discriminator(**kw), tdisc.Discriminator(**kw)
+    params, tm = bridged(jm, tm)
+    img = np.random.RandomState(18).randn(2, 3, 32, 32).astype(np.float32)
+    want = jax.jit(lambda p, img: jm(p, img, None))(params, nhwc(img))
+    got = tm(t(img), None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

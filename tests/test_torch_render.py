@@ -184,3 +184,156 @@ def test_frustum_render_unfused(yaw, pitch, window):
         return
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+# --- per-output-tile sub-windows (`tiles`, rendering_kwargs['frustum_tiles']) --
+
+@pytest.mark.parametrize("tiles", [(4, 96, 4, 96, 256), (8, 48, 4, 24, 200),
+                                   (6, 64, 5, 48, 512)])   # ragged last tiles
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_tiled_slab_resample(tiles, channels_first):
+    """Tiled contraction against JAX's and against the port's full
+    contraction (the windows cover every tap here)."""
+    rng = np.random.RandomState(3)
+    ext = 64 + 2 * jfr.MARGIN
+    t2 = rng.randn(ext, ext, 4).astype(np.float32)
+    t_vals = np.linspace(2.0, 2.4, 5).astype(np.float32)
+    args = (0.9, 1.1, np.array([40.0, 30.0], np.float32),
+            np.array([5.0, -4.0], np.float32))
+    want = jfr.slab_resample(jnp.asarray(t2), jnp.asarray(t_vals), *args[:2],
+                             jnp.asarray(args[2]), jnp.asarray(args[3]), 16,
+                             tiles=tiles, channels_first=channels_first)
+    targs = (t(t2), t(t_vals), *args[:2], t(args[2]), t(args[3]), 16)
+    got = tfr.slab_resample(*targs, tiles=tiles, channels_first=channels_first)
+    full = tfr.slab_resample(*targs, channels_first=channels_first)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kw,copied", [(dict(tiles=(4, 96, 4, 96, 256)), 9),
+                                       (dict(win=(200, 96)), 2)])
+def test_slab_resample_reads_its_window_starts_once(monkeypatch, kw, copied):
+    """One host copy of every window's smallest center per call: 4 + 4 tiles
+    and the union window, or the window's two axes; no other sync."""
+    calls = []
+    real = torch.Tensor.tolist
+
+    def counting(self):
+        calls.append(self.numel())
+        return real(self)
+
+    monkeypatch.setattr(torch.Tensor, "tolist", counting)
+    rng = np.random.RandomState(3)
+    ext = 64 + 2 * jfr.MARGIN
+    monkeypatch.setattr(torch.Tensor, "item", lambda self: calls.append("item"))
+    tfr.slab_resample(t(rng.randn(ext, ext, 4)), t(np.linspace(2.0, 2.4, 5)), 0.9,
+                      1.1, t([40.0, 30.0]), t([5.0, -4.0]), 16, **kw)
+    assert calls == [copied]
+
+
+def _factored(yaw, pitch, S, nrr, T):
+    """Both packages' `prepare_textures` outputs without the textures (the
+    guard reads only their extent and the shear factors), and depths [1, T]
+    over the seg2cat range."""
+    c2w, intr = _camera(yaw, pitch)
+    jc = jfr.frustum_coeffs(c2w, intr, nrr, S, 1.0)
+    tc = tfr.frustum_coeffs(t(c2w), t(intr), nrr, S, 1.0)
+    ext = S + 2 * jfr.MARGIN
+    preps = []
+    for mod, c, arr in ((jfr, jc, jnp.zeros), (tfr, tc, torch.zeros)):
+        _, _, d1, d2, F0, F1, _ = mod.factor_shears(c["B"], c["E0"], c["E1"])
+        preps.append({"tex": arr((3, ext, 1)), "d1": d1.reshape(-1),
+                      "d2": d2.reshape(-1), "F0": F0.reshape(-1, 2),
+                      "F1": F1.reshape(-1, 2), "n": 1, "q": 3})
+    t_vals = np.linspace(2.25 / 1.02, 3.3, T, dtype=np.float32)[None]
+    return preps, t_vals
+
+
+@pytest.mark.parametrize("yaw,pitch", [(np.pi / 2, np.pi / 2),
+                                       (np.pi / 2 + 0.6, np.pi / 2 - 0.4),
+                                       (np.pi / 2 - 0.6, np.pi / 2 + 0.4)])
+@pytest.mark.parametrize("tiles,bad", [((32, 96, 32, 96, 256), False),
+                                       ((32, 16, 32, 16, 64), True),
+                                       ((32, 96, 32, 24, 256), None)])
+def test_tiled_coverage_guard_matches_jax(yaw, pitch, tiles, bad):
+    """The guard of the tiled path at the production geometry of JAX's
+    tests/test_frustum.py (S=256, nrr=128, 96 slabs in chunks of 8, the
+    orbit extremes): the default tiles (nrr//4, 96, nrr//4, 96, 256) cover
+    every tap, undersized ones do not, a narrow stage-2 window is decided
+    as JAX decides it."""
+    (jprep, tprep), t_vals = _factored(yaw, pitch, 256, 128, 96)
+    want = bool(jfr.window_coverage_violation(jprep, jnp.asarray(t_vals), 128,
+                                              None, 8, tiles=tiles))
+    got = bool(tfr.window_coverage_violation(tprep, t(t_vals), 128, None, 8,
+                                             tiles=tiles))
+    assert got == want
+    if bad is not None:
+        assert got == bad
+
+
+@pytest.mark.parametrize("tiles,poisoned", [((4, 96, 4, 96, 256), False),
+                                            ((4, 8, 4, 8, 32), True)])
+def test_tiled_frustum_render_unfused(tiles, poisoned):
+    """The unfused render with tiles against JAX's; tiles too small for the
+    camera NaN-poison both."""
+    jd, params, td = _decoder(False, 5)
+    c2w, intr = _camera(np.pi / 2 + 0.2, np.pi / 2 - 0.1, batch=2)
+    planes = _planes(2, seed=1)
+    want = jax.jit(lambda p, pl, c2w, intr: jfr.frustum_render(
+        pl, lambda f, d: jd(p, f, d), c2w, intr, OPTS, 16, depth_steps=24, chunk=8,
+        tiles=tiles))(params, jnp.asarray(planes), c2w, intr)
+    with torch.no_grad():
+        got = tfr.frustum_render(t(planes), td, t(c2w), t(intr), OPTS, 16,
+                                 depth_steps=24, chunk=8, tiles=tiles)
+        full = tfr.frustum_render(t(planes), td, t(c2w), t(intr), OPTS, 16,
+                                  depth_steps=24, chunk=8, window=(192, 192))
+    for a, b, f in zip(got, want, full):
+        assert np.isnan(np.asarray(b)).all() == poisoned
+        assert torch.isnan(a).all() == poisoned
+        if not poisoned:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+            np.testing.assert_allclose(a.numpy(), f.numpy(), **TOL)
+
+
+def test_tiled_frustum_render_rematerialized_gradients():
+    """Training's per-chunk rematerialization (`frustum_remat`) over the
+    tiled path: the same outputs and the same plane gradients as without
+    it (the recompute reads its window starts again)."""
+    _, _, td = _decoder(False, 6)
+    c2w, intr = _camera(np.pi / 2 + 0.2, np.pi / 2 - 0.1, batch=1)
+    planes = t(_planes(1, seed=2))
+    results = []
+    for remat in (True, False):
+        p = planes.clone().requires_grad_(True)
+        out = tfr.frustum_render(p, td, t(c2w), t(intr), dict(OPTS, frustum_remat=remat),
+                                 16, depth_steps=24, chunk=8, tiles=(4, 96, 4, 96, 256))
+        (out[0].square().sum() + out[1].sum()).backward()
+        results.append((out[0].detach(), p.grad))
+    np.testing.assert_allclose(results[0][0].numpy(), results[1][0].numpy(), **TOL)
+    np.testing.assert_allclose(results[0][1].numpy(), results[1][1].numpy(), **TOL)
+    assert results[0][1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_tiled_frustum_render_gradients_match_jax(remat):
+    """Plane gradients through the tiled path, with and without training's
+    `frustum_remat`, against `jax.grad` of JAX's tiled render: the backward
+    of stage 1's per-i-tile and stage 2's per-j-tile slices included."""
+    jd, params, td = _decoder(False, 6)
+    c2w, intr = _camera(np.pi / 2 + 0.2, np.pi / 2 - 0.1, batch=1)
+    planes = _planes(1, seed=2)
+    opts = dict(OPTS, frustum_remat=remat)
+    tiles = (4, 96, 4, 96, 256)
+
+    def loss(pl):
+        out = jfr.frustum_render(pl, lambda f, d: jd(params, f, d), c2w, intr,
+                                 opts, 16, depth_steps=24, chunk=8, tiles=tiles)
+        return jnp.square(out[0]).sum() + out[1].sum()
+
+    want = jax.jit(jax.grad(loss))(jnp.asarray(planes))
+    p = t(planes).requires_grad_(True)
+    out = tfr.frustum_render(p, td, t(c2w), t(intr), opts, 16, depth_steps=24,
+                             chunk=8, tiles=tiles)
+    (out[0].square().sum() + out[1].sum()).backward()
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(want), **TOL)
+    assert np.abs(np.asarray(want)).sum() > 0
