@@ -1,0 +1,7 @@
+"""Device time of the generator's `mapping` range per batch (ms)."""
+
+from harness.readers import range_device_ms
+
+
+def read(ctx):
+    return range_device_ms(ctx, "mapping")
