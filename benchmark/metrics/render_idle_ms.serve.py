@@ -1,0 +1,8 @@
+"""Device idle while the host is inside the `render` range, per request (ms):
+the part of the device's idle time that the render's host work leaves."""
+
+from harness.spans import render_idle_ms
+
+
+def read(ctx):
+    return render_idle_ms(ctx)

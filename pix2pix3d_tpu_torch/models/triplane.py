@@ -30,7 +30,7 @@ kernel is reached through that argument, e.g.
 Inputs and outputs keep the JAX package's layouts: mask `[N, H, W, 1]`,
 images `[N, H, W, C]`, planes `[N, 3, H, W, C]`.
 
-The forward's stages run inside `torch.profiler.record_function` ranges
+The forward's stages run inside `utils.profiling.annotate` spans
 (`STAGES`), so a profiler over a real request reads each stage's time.
 """
 
@@ -40,7 +40,6 @@ import math
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..nn.cond_mapping import (EdgeMappingNetwork, EdgeMappingNetworkDisentangle,
@@ -59,6 +58,7 @@ from ..ops.grid_sample import grid_sample_2d
 from ..render.frustum import frustum_render
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer, render_rays, sample_from_planes
+from ..utils.profiling import annotate
 
 
 MAPPING_REGISTRY = {
@@ -285,7 +285,7 @@ class _TriPlaneBase(nn.Module):
             truncation_cutoff=truncation_cutoff)
 
     def _planes(self, ws, noise_mode, force_fp32, generator):
-        with record_function(STAGES[1]):
+        with annotate(STAGES[1]):
             return _reshape_planes(self.backbone.synthesis(
                 ws, noise_mode=noise_mode, force_fp32=force_fp32,
                 generator=generator))
@@ -326,7 +326,7 @@ class _TriPlaneBase(nn.Module):
         return (*out, ray_directions)
 
     def _sr_call(self, module, stage, img, feats, ws, generator, force_fp32):
-        with record_function(stage):
+        with annotate(stage):
             return module(img, feats, ws,
                           noise_mode=self.rendering_kwargs["superresolution_noise_mode"],
                           force_fp32=force_fp32, generator=generator)
@@ -357,7 +357,7 @@ class _TriPlaneBase(nn.Module):
         """z [N, z_dim], c [N, 25] camera, batch {'mask' [N, H, W, 1],
         'pose' [N, 25]}; `noise_mode` 'random' (the default; needs
         `generator`) | 'const' | 'none'."""
-        with record_function(STAGES[0]):
+        with annotate(STAGES[0]):
             ws = self.mapping(z, batch["pose"], batch, truncation_psi=truncation_psi,
                               truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, c,
@@ -398,7 +398,7 @@ class TriPlaneGenerator(_TriPlaneBase):
         nrr = neural_rendering_resolution or self.neural_rendering_resolution
         if planes is None:
             planes = self._planes(ws, noise_mode, force_fp32, generator)
-        with record_function(STAGES[2]):
+        with annotate(STAGES[2]):
             feats, depths, _, _ = self._render_planes(planes, c, nrr,
                                                       generator=generator, det=det)
         feature_image = _image(feats, nrr)
@@ -448,7 +448,7 @@ class TriPlaneSemanticEntangleGenerator(_TriPlaneBase):
         nrr = neural_rendering_resolution or self.neural_rendering_resolution
         if planes is None:
             planes = self._planes(ws, noise_mode, force_fp32, generator)
-        with record_function(STAGES[2]):
+        with annotate(STAGES[2]):
             feats, depths, _, _ = self._render_planes(planes, c, nrr,
                                                       generator=generator, det=det)
         rgb_feats, sem_feats, rgb_image, semantic_image, depth_image = \
@@ -464,7 +464,7 @@ class TriPlaneSemanticEntangleGenerator(_TriPlaneBase):
         if (sem_prec is None and rk.get("dual_sr")
                 and dual_sr_compatible(self.superresolution,
                                        self.superresolution_semantic)):
-            with record_function(STAGES[3]):
+            with annotate(STAGES[3]):
                 sr_image, sr_semantic = dual_superresolution(
                     self.superresolution, self.superresolution_semantic,
                     rgb_image, rgb_feats, semantic_image, sem_feats, ws,
@@ -512,7 +512,7 @@ class TriPlaneSemanticEntangleGeneratorWithBG(TriPlaneSemanticEntangleGenerator)
         nrr = neural_rendering_resolution or self.neural_rendering_resolution
         if planes is None:
             planes = self._planes(ws, noise_mode, force_fp32, generator)
-        with record_function(STAGES[2]):
+        with annotate(STAGES[2]):
             feats, depths, weights, ray_directions = self._render_planes(
                 planes, c, nrr, generator=generator, det=det)
             # the background plane from the last w, broadcast (ref :1160-1162)
@@ -622,11 +622,11 @@ class TriPlaneSemanticGenerator(_TriPlaneBase):
                              f"and semantic ws, 2 x {self.w_dim}")
         ws_texture, ws_semantic = ws[..., :self.w_dim], ws[..., self.w_dim:]
         kw = dict(noise_mode=noise_mode, force_fp32=force_fp32, generator=generator)
-        with record_function(STAGES[1]):
+        with annotate(STAGES[1]):
             planes_t = _reshape_planes(self.backbone.synthesis(ws_texture, **kw))
             planes_s = _reshape_planes(self.backbone_semantic.synthesis(ws_semantic,
                                                                         **kw))
-        with record_function(STAGES[2]):
+        with annotate(STAGES[2]):
             cam2world, intrinsics = _parse_pose(c)
             ray_origins, ray_directions = sample_rays(cam2world, intrinsics, nrr)
             feats, depths, _ = render_rays(

@@ -52,12 +52,12 @@ import copy
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import bridge
 from ..models.triplane import init_parameters, update_w_avg
 from ..train.ema import copy_buffers, ema_beta, ema_update
 from ..train.loss import blur_size_bucket
+from ..utils.profiling import annotate
 from .multihost import all_reduce_max_, all_reduce_sum_, broadcast_
 
 
@@ -268,7 +268,7 @@ class Trainer:
             grads = [torch.nan_to_num(g * gain, nan=0.0, posinf=1e5, neginf=-1e5)
                      for g in grads]
         else:
-            with record_function(f"allreduce_{name}"):
+            with annotate(f"allreduce_{name}"):
                 grads = reduce_gradients(grads, gain, self.group)
         for p, g in zip(params, grads):
             p.grad = g
@@ -324,13 +324,13 @@ class Trainer:
 
         cv_aux = None
         if loss.lambda_cross_view > 0:
-            with record_function("phase_cv_prep"):
+            with annotate("phase_cv_prep"):
                 outs = [loss.cross_view_prep(mb(phase_in[0], r)["z"], mb(batch, r),
                                              mb(phase_in[0], r)["c"], generator, nrr)
                         for r in range(rounds)]
                 cv_aux = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
-        with record_function("phase_gmain"):
+        with annotate("phase_gmain"):
             def gmain(r):
                 b, p = mb(batch, r), mb(phase_in[0], r)
                 kw = {} if cv_aux is None else {"cv_aux": mb(cv_aux, r)}
@@ -339,13 +339,13 @@ class Trainer:
             add(self._phase_update("gmain", gmain, self.G, self.opt_g, 1.0))
 
         if do_greg:
-            with record_function("phase_greg"):
+            with annotate("phase_greg"):
                 def greg(r):
                     return loss.g_reg(mb(batch, r), mb(phase_in[1], r)["z"], generator)
                 add(self._phase_update("greg", greg, self.G, self.opt_g,
                                        float(self.g_reg_interval)))
 
-        with record_function("phase_dmain"):
+        with annotate("phase_dmain"):
             def dmain(r):
                 b, p = mb(batch, r), mb(phase_in[2], r)
                 value, (s, aux) = loss.d_main(b, p["z"], p["c"], generator, blur,
@@ -354,13 +354,13 @@ class Trainer:
             s = self._phase_update("dmain", dmain, self.D, self.opt_d, 1.0)
             ws_mean = s.pop("_ws_mean")
             if self.group is not None:
-                with record_function("allreduce_ws_mean"):
+                with annotate("allreduce_ws_mean"):
                     ws_mean = mean_over_ranks(ws_mean, self.group)
             update_w_avg(self.G, ws_mean)
             add(s)
 
         if do_dreg and loss.r1_gamma > 0:
-            with record_function("phase_dreg"):
+            with annotate("phase_dreg"):
                 def dreg(r):
                     return loss.d_r1(mb(batch, r), generator, blur, nrr,
                                      aug_p=aug_p, raw_fade=raw_fade)
@@ -368,21 +368,21 @@ class Trainer:
                                        float(self.d_reg_interval)))
 
         if self.D_semantic is not None:
-            with record_function("phase_dsmain"):
+            with annotate("phase_dsmain"):
                 def dsmain(r):
                     b, p = mb(batch, r), mb(phase_in[3], r)
                     return loss.d_semantic_main(b, p["z"], p["c"], generator, blur,
                                                 nrr, aug_p=aug_p, raw_fade=raw_fade)
                 add(self._phase_update("dsmain", dsmain, self.D_semantic, self.opt_dsem, 1.0))
             if do_dreg and loss.r1_gamma > 0:
-                with record_function("phase_dsreg"):
+                with annotate("phase_dsreg"):
                     def dsreg(r):
                         return loss.d_semantic_r1(mb(batch, r), generator, blur, nrr,
                                                   aug_p=aug_p, raw_fade=raw_fade)
                     add(self._phase_update("dsreg", dsreg, self.D_semantic, self.opt_dsem,
                                            float(self.d_reg_interval)))
 
-        with record_function("phase_ema"):
+        with annotate("phase_ema"):
             beta = ema_beta(batch_size, cur_nimg, ema_kimg, ema_rampup)
             ema_update(self.G_ema, self.G, beta)
             copy_buffers(self.G_ema, self.G)
@@ -392,7 +392,7 @@ class Trainer:
             return {}
         flat = torch.stack([stats[k] for k in names])
         if self.group is not None:
-            with record_function("allreduce_stats"):
+            with annotate("allreduce_stats"):
                 all_reduce_sum_(flat, self.group)
         flat = flat.cpu().numpy()
         return dict(zip(names, flat))

@@ -19,7 +19,10 @@ JAX), the NaN-poison coverage guard and the per-chunk rematerialization of
 training (`frustum_remat`) stay as the JAX package has them.  A window's
 start depends on the depths, so the host reads it to slice the texture: each
 `slab_resample` call reduces its windows' smallest centers on the device and
-reads them all with one host copy.
+reads them all with one host copy (`utils.profiling.host_read`, a
+`sync.window` span).  Under a profiler the render's host work shows as
+`render.prepare` (the shears) and one `render.slabs` span per chunk (the
+slab resamples, holding their syncs).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import decode_composite
 from ..ops.bias_act import softplus
+from ..utils.profiling import annotate, host_read
 
 
 def generate_plane_axes():
@@ -198,7 +202,7 @@ def slab_resample(t2, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32,
     ext_y = ext_x = ext
     if win is not None and min(win) < ext:
         win_y, win_x = min(win[0], ext), min(win[1], ext)
-        lo_y, lo_x = torch.stack([cy.amin(), cx.amin()]).tolist()
+        lo_y, lo_x = host_read(torch.stack([cy.amin(), cx.amin()]), "window")
         y0, x0 = _win_start(lo_y, ext, win_y), _win_start(lo_x, ext, win_x)
         t2 = t2[y0:y0 + win_y, x0:x0 + win_x]
         cy = cy - y0
@@ -235,7 +239,7 @@ def _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first):
     wy_t = min(wy_t, ext)
     wx_t = min(wx_t, wxu)
     y_mins, x_mins = _tile_mins(cy, gi), _tile_mins(cx, gj)
-    mins = torch.stack(y_mins + x_mins + [cx.amin()]).tolist()
+    mins = host_read(torch.stack(y_mins + x_mins + [cx.amin()]), "window")
     y0s = [_win_start(m, ext, wy_t) for m in mins[:len(y_mins)]]
     x0u = _win_start(mins[-1], ext, wxu) if wxu < ext else 0
     x0s = [_win_start(m - x0u, wxu, wx_t) for m in mins[len(y_mins):-1]]
@@ -421,7 +425,8 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     dev = planes.device
 
     coeffs = frustum_coeffs(cam2world, intrinsics, nrr, S, opts["box_warp"])
-    prep = prepare_textures(planes, coeffs, compute_dtype)
+    with annotate("render.prepare"):
+        prep = prepare_textures(planes, coeffs, compute_dtype)
 
     # per-ray direction norms (z-depth t -> Euclidean depth t*|d|)
     ii = (torch.arange(nrr, dtype=torch.float32, device=dev) + 0.5) / nrr
@@ -444,12 +449,15 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     bad = window_coverage_violation(prep, t_vals, nrr, window, chunk, tiles=tiles)
     t_vals = t_vals + torch.where(bad, float("nan"), 0.0) * 0.0
 
+    def slabs(t_chunk, channels_first=False):
+        with annotate("render.slabs"):
+            return sample_slabs_prepared(prep, t_chunk, nrr, compute_dtype, win=window,
+                                         tiles=tiles, channels_first=channels_first)
+
     if fused_decoder is not None:
         ch_n = T // chunk
         feats = torch.stack([
-            sample_slabs_prepared(prep, t_vals[:, k * chunk:(k + 1) * chunk], nrr,
-                                  compute_dtype, win=window, tiles=tiles,
-                                  channels_first=True)
+            slabs(t_vals[:, k * chunk:(k + 1) * chunk], channels_first=True)
             .reshape(n, chunk, -1, r)
             for k in range(ch_n)])                            # [CH, N, TC, C, r]
         w1t, b1, w2t, b2, sem_sig = fused_decoder
@@ -461,8 +469,7 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
                          opts)
 
     def decode_chunk(t_chunk):
-        feats = sample_slabs_prepared(prep, t_chunk, nrr, compute_dtype, win=window,
-                                      tiles=tiles)
+        feats = slabs(t_chunk)
         tc = t_chunk.shape[1]
         feats = feats.reshape(n, 1, tc * r, -1).to(compute_dtype)
         dirs_b = dirs[:, None].expand(n, tc, r, 3).reshape(n, tc * r, 3)

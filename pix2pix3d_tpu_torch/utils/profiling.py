@@ -2,34 +2,43 @@
 
 The reference's `torch.autograd.profiler.record_function` regions and
 CUDA-event phase timers (`misc.py:102-107`, `training_loop.py:375-379`):
-`annotate` and `profiled_function` open `torch.profiler.record_function`
-ranges, which a `trace(logdir)` capture (or any `torch.profiler.profile`)
-records; `PhaseTimer` sums host wall time per phase name, synchronizing the
-card first where asked.
+`annotate` is the port's one span: a `torch.profiler.record_function`
+range while a profiler collects (a `trace(logdir)` capture or any
+`torch.profiler.profile`), else a shared no-op, so an untraced run pays a
+flag check, not a range.  `host_read` is the one counted device-to-host
+read: each call is a `sync.<reason>` span, whose count is the number of
+host syncs and whose length is the host's wait on the device.
+`PhaseTimer` sums host wall time per phase name, synchronizing the card
+first where asked.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, record_function
 
+_NO_SPAN = contextlib.nullcontext()
+
 
 def annotate(name):
-    """A named profiler range (near-free when nothing is tracing)."""
-    return record_function(name)
+    """A named profiler range while a profiler collects, else a no-op.
+
+    The flag is read at each call, so a profiler started after import sees
+    every span; a `record_function` range costs over 10 us of host time even
+    with no profiler running, the flag check well under 1 us."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
-def profiled_function(fn):
-    """Decorator version (ref `misc.profiled_function`, `misc.py:102-107`)."""
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with record_function(getattr(fn, "__name__", "fn")):
-            return fn(*args, **kwargs)
-    return wrapper
+def host_read(tensor, reason):
+    """`tensor.tolist()` inside a `sync.<reason>` span: the path's
+    deliberate device-to-host reads, counted and timed by the profiler."""
+    with annotate(f"sync.{reason}"):
+        return tensor.tolist()
 
 
 @contextlib.contextmanager

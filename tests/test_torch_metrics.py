@@ -19,8 +19,9 @@ generator or a network to compile.
   package's own LPIPS network (on one set of weights): there, 1e-3
   relative (f32 convolutions summed in other orders, on two images 1e-4
   apart in W, divided by 1e-8; measured 6.4e-5).
-- `PhaseTimer`, `annotate`, `profiled_function` and `trace` of the port's
-  profiling helpers.
+- `PhaseTimer`, `annotate` and `trace` of the port's profiling helpers
+  (`annotate` off and on, `host_read` and the render's spans:
+  tests/test_torch_profiling.py).
 """
 
 import torch_cpu  # noqa: F401  (thread and heap settings: tests/torch_cpu.py)
@@ -424,15 +425,10 @@ def test_phase_timer_and_annotations(tmp_path):
     assert set(means) == {"gen", "feat"} and all(v >= 0 for v in means.values())
     assert means["gen"] == pytest.approx(1e3 * timer.totals["gen"] / 3)
 
-    @profiling.profiled_function
-    def scaled(t):
-        return t * 3
-    assert scaled.__name__ == "scaled"
-
     with profiling.trace(tmp_path / "tb") as prof:
         with profiling.annotate("metric_phase"):
-            scaled(x)
+            x * 3
     names = {e.key for e in prof.key_averages()}
-    assert {"metric_phase", "scaled"} <= names
+    assert "metric_phase" in names
     traces = glob.glob(os.path.join(tmp_path, "tb", "*.pt.trace.json"))
     assert len(traces) == 1 and "metric_phase" in open(traces[0]).read()
