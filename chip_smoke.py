@@ -273,6 +273,18 @@ time and the generator's parameter count; their paths join
                FUSED_TOL); undersized tiles at yaw +0.6, pitch -0.4 NaN-poison
                the render; request ms as served, tiles and default window in
                turns.
+34. render-syncs -- the frustum render makes no host sync: the serving
+               request at batch 1 and a batch of 32 (orbit cameras, as the
+               seg2cat-batch32 cell draws them) through the serving
+               generator, with the render inside
+               `torch.cuda.set_sync_debug_mode("error")` (any sync raises);
+               as a control, the tiled path (`frustum_tiles`), which reads
+               its window starts with `host_read`, must raise there.  Then
+               the batch-32 render's first chunk: `sample_slabs_prepared`
+               (one batched resample) against the loop of per-texture
+               `slab_resample` calls over the same prepared textures
+               (SLABS_TOL in bf16), both timed (`cuda_ms`), and the
+               batch's peak memory.
 Phases 30-32 launch neither kernel; their paths join `launches_by_path`.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
@@ -295,6 +307,7 @@ The second-to-last line is the `kernels` JSON, the last line
 own failure, and nothing runs on the CPU in place of the card.
 """
 
+import contextlib
 import io
 import json
 import math
@@ -3290,6 +3303,137 @@ def phase_frustum_tiles(device, card, counts):
     phase_done("frustum-tiles", t0)
 
 
+SLABS_TOL = 1e-2    # bf16 products of other batch shapes: cuBLAS may pick other kernels
+
+
+@contextlib.contextmanager
+def no_sync_in(module, name):
+    """Every call of `module.name` inside the block runs under
+    `torch.cuda.set_sync_debug_mode("error")`: a host sync in it raises."""
+    real = getattr(module, name)
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    setattr(module, name, strict)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def orbit_inputs(G, n, seed, device):
+    """A batch of `n` requests: z, random label maps and n cameras evenly
+    spaced over the seg2cat cell's orbit (yaw +-0.35, pitch +-0.25)."""
+    from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler,
+                                                   fov_to_intrinsics,
+                                                   pose_to_conditioning)
+    gen = torch.Generator().manual_seed(seed)
+    res = G.img_resolution
+    z = torch.randn((n, G.z_dim), generator=gen).to(device)
+    mask = torch.randint(0, G.semantic_channels, (n, res, res, 1),
+                         generator=gen).float().to(device)
+    phase = torch.linspace(0, 2 * math.pi, n + 1)[:n]
+    c2w = torch.cat([LookAtPoseSampler.sample(
+        math.pi / 2 + 0.35 * math.sin(p), math.pi / 2 + 0.25 * math.cos(p),
+        [0, 0, -0.06], radius=2.7, device=device) for p in phase.tolist()])
+    pose = pose_to_conditioning(c2w, fov_to_intrinsics(18.837, device=device))
+    return z, pose, {"mask": mask, "pose": pose}
+
+
+def phase_render_syncs(device, card):
+    """Phase 34: no host sync inside the frustum render (batch 1 and 32),
+    the tiled path as the control; the batched slabs against the
+    per-texture loop on one chunk of the batch-32 render."""
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.models import triplane
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.render import frustum
+    t0 = time.time()
+    nrr = config.SERVING_NEURAL_RENDERING_RESOLUTION
+    G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
+    rk = G.rendering_kwargs
+
+    def request(inputs):
+        z, pose, batch = inputs
+        with torch.no_grad(), precision.policy(True):
+            return G(z, pose, batch, neural_rendering_resolution=nrr,
+                     noise_mode="const", det=True)
+
+    one = request_inputs(G, 0, device)
+    request(one)                  # warm-up: cuDNN, the allocator, per-device constants
+    with no_sync_in(triplane, "frustum_render"):
+        out = request(one)
+    check_shapes(out, {"image": (1, G.img_resolution, G.img_resolution, 3)})
+    log("render-syncs: batch 1, the render under set_sync_debug_mode('error'): no sync")
+    rk["frustum_tiles"] = (nrr // 4, 96, nrr // 4, 96, 256)
+    try:
+        with no_sync_in(triplane, "frustum_render"):
+            request(one)
+    except RuntimeError as e:
+        log(f"render-syncs: control, the tiled path raises: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("the tiled path's host_read passed the sync check")
+    finally:
+        rk.pop("frustum_tiles")
+
+    batch = orbit_inputs(G, 32, 1, device)
+    request(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+
+    def first_chunk(prep, t_vals, *args, **kwargs):
+        if not calls:
+            calls.append((prep, t_vals, args, kwargs))
+        return real_slabs(prep, t_vals, *args, **kwargs)
+
+    real_slabs = frustum.sample_slabs_prepared
+    frustum.sample_slabs_prepared = first_chunk
+    try:
+        with no_sync_in(triplane, "frustum_render"):
+            out = request(batch)
+        torch.cuda.synchronize()
+    finally:
+        frustum.sample_slabs_prepared = real_slabs
+    peak = torch.cuda.max_memory_allocated()
+    check_shapes(out, {"image": (32, G.img_resolution, G.img_resolution, 3)})
+    log(f"render-syncs: batch 32, the render under set_sync_debug_mode('error'): no "
+        f"sync; peak memory {peak / 2**30:.2f} GiB")
+    del out
+    prep, t_vals, (nrr_, dtype), kw = calls[0]
+    tex = prep["tex"]
+
+    def batched():
+        return frustum.sample_slabs_prepared(prep, t_vals, nrr_, dtype, **kw)
+
+    def loop():
+        return torch.stack([torch.stack([
+            frustum.slab_resample(tex[k].transpose(1, 2), t_vals[i], prep["d1"][k],
+                                  prep["d2"][k], prep["F0"][k], prep["F1"][k], nrr_,
+                                  dtype, **kw)
+            for k in range(3 * i, 3 * i + 3)]).mean(0).to(dtype)
+            for i in range(prep["n"])])
+
+    with torch.no_grad():
+        got, want = batched(), loop()
+        abs_e, rel_e, used, rms = compare((got,), (want,), SLABS_TOL)
+        b_ms, l_ms = cuda_ms(batched, 5), cuda_ms(loop, 3)
+    log(f"render-syncs: batched slabs vs per-texture loop, chunk {tuple(got.shape)} "
+        f"{str(dtype)[6:]} window {kw['win']}: max abs {abs_e:.3e} rel {rel_e:.3e} "
+        f"({used:.3f} of tol {SLABS_TOL}), RMS {rms:.3e}; ms batched {b_ms:.3f}, "
+        f"loop {l_ms:.3f} [{card}]")
+    del G, calls, prep, tex, got, want
+    torch.cuda.empty_cache()
+    phase_done("render-syncs", t0)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -3718,6 +3862,8 @@ def main():
         torch.cuda.empty_cache()
         phase_legacy_tf(device, card, counts, tmp)
         phase_frustum_tiles(device, card, counts)
+        # ---- 34. no host sync inside the frustum render
+        phase_render_syncs(device, card)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]

@@ -12,22 +12,25 @@ Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
      the hand-written CUDA kernel `ops/decode_composite.py` when the fused
      decoder params are given, else the unfused decode/composite below.
 
-Layouts follow the JAX package: planes `[N, 3, S, S, C]` feature-last,
-textures `[S, S, C]`.  The contraction windows (one per chunk, `window`, or
-per output tile, `tiles` = `rendering_kwargs['frustum_tiles']`, opt-in as in
-JAX), the NaN-poison coverage guard and the per-chunk rematerialization of
-training (`frustum_remat`) stay as the JAX package has them.  A window's
-start depends on the depths, so the host reads it to slice the texture: each
-`slab_resample` call reduces its windows' smallest centers on the device and
-reads them all with one host copy (`utils.profiling.host_read`, a
-`sync.window` span).  Under a profiler the render's host work shows as
-`render.prepare` (the shears) and one `render.slabs` span per chunk (the
-slab resamples, holding their syncs).
+Planes are `[N, 3, S, S, C]` feature-last as in the JAX package; the
+sheared textures are `[ext, C, ext]` (rows, channels, columns), and
+`slab_resample` takes JAX's `[ext, ext, C]`.  The contraction windows (one
+per chunk, `window`, or per output tile, `tiles` =
+`rendering_kwargs['frustum_tiles']`, opt-in as in JAX), the NaN-poison
+coverage guard and the per-chunk rematerialization of training
+(`frustum_remat`) stay as the JAX package has them.  A window's start
+depends on the depths.  `resample_slabs` finds every texture's starts on
+the device and runs all N*3 windows of a chunk as batched products: no host
+read, one launch sequence a chunk.  The tiled path slices per-tile windows
+with host ints: each tiled resample reads all its starts with one host copy
+(`utils.profiling.host_read`, a `sync.window` span).  Under a profiler the
+render's host work shows as `render.prepare` (the shears) and one
+`render.slabs` span per chunk (the slab resamples).
 """
 
 from __future__ import annotations
 
-import math
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +60,14 @@ def _safe_div(x, y, eps=1e-8):
                        x / torch.where(small, torch.ones_like(y), y))
 
 
+@functools.lru_cache(maxsize=None)
+def _plane_projection(device):
+    """The planes' first two inverse axes, [3 planes, 2, 3], copied to each
+    device once (a copy per render would block the host on the card)."""
+    return torch.as_tensor(np.transpose(_INV_PLANE_AXES, (0, 2, 1))[:, :2, :].copy(),
+                           dtype=torch.float32, device=device)
+
+
 def frustum_coeffs(cam2world, intrinsics, nrr, plane_res, box_warp):
     """Per-(image, plane) affine coefficients of the slab resample:
     B [N, 3, 2, 2], E0/E1 [N, 3, 2] (translation E0 + t*E1, texels) and the
@@ -73,9 +84,7 @@ def frustum_coeffs(cam2world, intrinsics, nrr, plane_res, box_warp):
     a_v = R1 / fy - R0 * sk / (fx * fy)
     a_0 = R2 - R0 * (cx - cy * sk / fy) / fx - R1 * cy / fy
 
-    P = torch.as_tensor(np.transpose(_INV_PLANE_AXES, (0, 2, 1))[:, :2, :].copy(),
-                        dtype=torch.float32, device=cam2world.device) \
-        * (2.0 / box_warp)
+    P = _plane_projection(cam2world.device) * (2.0 / box_warp)
     s_half = plane_res / 2.0
 
     def proj(vec):  # [N, 3] world -> [N, 3 planes, 2] texel-scaled
@@ -159,108 +168,154 @@ def shear_texture(tex, a, b, compute_dtype=torch.float32):
     return t2t.transpose(0, 1)
 
 
-def _win_start(lo_center, in_len, w):
-    """Start of a window of length `w` covering taps whose smallest center
-    is `lo_center` (a host float): floor(min)-2 slack, clipped to the input,
+def _win_starts(lo_center, in_len, w):
+    """Starts of windows of length `w` covering taps whose smallest centers
+    are `lo_center` (a tensor): floor(min)-2 slack, clipped to the input,
     rounded down to a multiple of 8 (as the JAX package does for the TPU's
-    tiled layout)."""
-    if math.isnan(lo_center):
-        return 0  # NaN-poisoned depths: the render is NaN whatever the window
-    lo = math.floor(lo_center) - 2.0
-    return (int(min(max(lo, 0.0), float(in_len - w))) // 8) * 8
+    tiled layout); 0 where the minimum is NaN (NaN-poisoned depths: the
+    render is NaN whatever the window).  Integer values in float32."""
+    lo = (torch.floor(lo_center) - 2.0).clamp(0, in_len - w)
+    return torch.nan_to_num(torch.floor(lo / 8) * 8, nan=0.0)
+
+
+def _centers(t_vals, d1, d2, F0, F1, nrr):
+    """Texel centers (cy, cx), each [K, T, nrr], of every slab's outputs,
+    t*d*i + (f0 + t*f1) + MARGIN per axis, for K = N*q textures (image n's
+    are n*q .. n*q+q-1) at depths t_vals [N, T]; d1/d2 [K], F0/F1 [K, 2]."""
+    n, T = t_vals.shape
+    K = d1.shape[0]
+    t = t_vals[:, None].expand(n, K // n, T).reshape(K, T)[:, :, None]
+    ii = torch.arange(nrr, dtype=torch.float32, device=t_vals.device)
+
+    def axis(d, f0, f1):
+        return t * d[:, None, None] * ii + (f0[:, None, None] + t * f1[:, None, None]) \
+            + MARGIN
+
+    return axis(d2, F0[:, 1], F1[:, 1]), axis(d1, F0[:, 0], F1[:, 0])
+
+
+def resample_slabs(tex, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32,
+                   win=None, channels_first=False):
+    """Per-slab axis-aligned scale+translate of K = N*q sheared textures,
+    averaged over each image's q planes (textures n*q .. n*q+q-1).
+
+    tex [K, ext, C, ext] (rows, channels, columns: `prepare_textures`'
+    layout), t_vals [N, T], d1/d2 [K], F0/F1 [K, 2] -> [N, T, nrr, nrr, C]
+    (or [N, T, C, nrr, nrr] with `channels_first`) in compute_dtype:
+      out[n, t, i, j] = mean_p tex[n*q+p] sampled at
+                        (y = t*d2*i + F_y(t), x = t*d1*j + F_x(t)).
+    `win=(win_y, win_x)` contracts only each texture's window that covers
+    every tap -- mathematically identical to the full contraction.  The
+    starts are found on the device, so nothing is read back to the host:
+    the window's rows are gathered with one index (a contiguous block of
+    channels and columns each), its columns by zero weight outside it."""
+    K, ext, C, _ = tex.shape
+    n, T = t_vals.shape
+    q = K // n
+    dev = tex.device
+    cy, cx = _centers(t_vals, d1, d2, F0, F1, nrr)           # [K, T, nrr]
+    win_y, win_x = (ext, ext) if win is None else (min(win[0], ext), min(win[1], ext))
+    Wx = _band_weights(cx, ext, dtype=compute_dtype)          # [K, T, nrr, ext]
+    if win_x < ext:
+        x0 = _win_starts(cx.amin(dim=(1, 2)), ext, win_x)[:, None]
+        x = torch.arange(ext, dtype=torch.float32, device=dev)
+        Wx = Wx * ((x >= x0) & (x < x0 + win_x))[:, None, None]
+    if win_y < ext:
+        y0 = _win_starts(cy.amin(dim=(1, 2)), ext, win_y)
+        rows = (torch.arange(0, K * ext, ext, device=dev)[:, None] + y0.long()[:, None]
+                + torch.arange(win_y, device=dev))
+        tex = tex.reshape(K * ext, C * ext).index_select(0, rows.reshape(-1))
+        cy = cy - y0[:, None, None]
+    Wy = _band_weights(cy, win_y, dtype=compute_dtype)         # [K, T, nrr, wy]
+    # stage 1: v[k, t, i, c, x] = sum_y Wy[k, t, i, y] tex[k, y, c, x]
+    v = torch.bmm(Wy.reshape(K, T * nrr, win_y),
+                  tex.to(compute_dtype).reshape(K, win_y, C * ext))
+    # stage 2: o[k, t, i, c, j] = sum_x v[k, t, i, c, x] Wx[k, t, j, x]
+    o = torch.bmm(v.reshape(K * T, nrr * C, ext), Wx.reshape(K * T, nrr, ext).transpose(1, 2))
+    o = o.reshape(n, q, T, nrr, C, nrr)
+    # the mean over each image's planes, in the layout asked for
+    if channels_first:
+        return o.permute(0, 1, 2, 4, 3, 5).mean(1)            # [N, T, C, i, j]
+    return o.permute(0, 1, 2, 3, 5, 4).mean(1)                # [N, T, i, j, C]
 
 
 def _tile_mins(c, group):
     """The smallest center of each tile of `group` outputs of c [T, nrr]."""
-    return [c[:, i0:i0 + group].amin() for i0 in range(0, c.shape[1], group)]
+    return torch.stack([c[:, i0:i0 + group].amin() for i0 in range(0, c.shape[1], group)])
 
 
 def slab_resample(t2, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32,
                   win=None, tiles=None, channels_first=False):
-    """Per-slab axis-aligned scale+translate of the sheared texture.
+    """Per-slab axis-aligned scale+translate of one sheared texture.
 
     t2 [ext, ext, C], t_vals [T] -> [T, nrr, nrr, C] (or [T, C, nrr, nrr]
-    with `channels_first`), f32:
-      out[t, i, j] = t2 sampled at (y = t*d2*i + F_y(t), x = t*d1*j + F_x(t)).
-    `win=(win_y, win_x)` contracts only a window that covers every tap --
-    mathematically identical to the full contraction.
+    with `channels_first`), f32: `resample_slabs` of one texture.
     `tiles=(gi, wy_t, gj, wx_t, wxu)`: per-output-tile sub-windows (JAX
     `render/frustum.py:216-263`): a `wxu`-texel union x-window, then stage 1
     per tile of `gi` output rows on its own `wy_t`-texel y-window, stage 2
     per tile of `gj` output columns on its own `wx_t`-texel x-window of the
     stage-1 intermediate; identical to the full contraction wherever the
     coverage guard passes."""
-    ext = t2.shape[0]
-    ii = torch.arange(nrr, dtype=torch.float32, device=t2.device)
-    cy = t_vals[:, None] * d2 * ii[None, :] + (F0[1] + t_vals[:, None] * F1[1]) \
-        + MARGIN                                               # [T, nrr]
-    cx = t_vals[:, None] * d1 * ii[None, :] + (F0[0] + t_vals[:, None] * F1[0]) \
-        + MARGIN
-    T, C = t_vals.shape[0], t2.shape[2]
-    if tiles is not None:
-        return _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first)
-    ext_y = ext_x = ext
-    if win is not None and min(win) < ext:
-        win_y, win_x = min(win[0], ext), min(win[1], ext)
-        lo_y, lo_x = host_read(torch.stack([cy.amin(), cx.amin()]), "window")
-        y0, x0 = _win_start(lo_y, ext, win_y), _win_start(lo_x, ext, win_x)
-        t2 = t2[y0:y0 + win_y, x0:x0 + win_x]
-        cy = cy - y0
-        cx = cx - x0
-        ext_y, ext_x = win_y, win_x
-    Wy = _band_weights(cy, ext_y, dtype=compute_dtype)         # [T, nrr, wy]
-    Wx = _band_weights(cx, ext_x, dtype=compute_dtype)         # [T, nrr, wx]
-    # stage 1: v[t, i, x, c] = sum_y Wy[t, i, y] t2[y, x, c]
-    v = torch.matmul(Wy, t2.to(compute_dtype).reshape(ext_y, ext_x * C))
-    return _stage2(v.reshape(T, nrr, ext_x, C), Wx, channels_first)
+    rows = t2.transpose(1, 2)                                 # [ext, C, ext]
+    d1, d2 = (torch.as_tensor(d, dtype=torch.float32, device=t2.device).reshape(1)
+              for d in (d1, d2))
+    if tiles is None:
+        out = resample_slabs(rows[None], t_vals[None], d1, d2, F0[None], F1[None], nrr,
+                             compute_dtype, win=win, channels_first=channels_first)
+        return out[0].float()
+    cy, cx = _centers(t_vals[None], d1, d2, F0[None], F1[None], nrr)
+    return _tiled_resample(rows, cy[0], cx[0], tiles, compute_dtype, channels_first)
 
 
 def _stage2(v, Wx, channels_first):
-    """out[t, i, j, c] = sum_x Wx[t, j, x] v[t, i, x, c]: [T, nrr, J, C], or
+    """out[t, i, j, c] = sum_x Wx[t, j, x] v[t, i, c, x]: [T, nrr, J, C], or
     [T, C, nrr, J] for the fused decode+composite kernel, f32."""
-    T, nrr, X, C = v.shape
-    if channels_first:
-        vt = v.permute(0, 3, 1, 2).reshape(T, C * nrr, X)
-        out = torch.bmm(vt, Wx.transpose(1, 2))                # [T, C*i, j]
-        return out.float().reshape(T, C, nrr, -1)
-    return torch.einsum("tjx,tixc->tijc", Wx, v).float()
+    T, nrr, C, X = v.shape
+    out = torch.bmm(v.reshape(T, nrr * C, X), Wx.transpose(1, 2)).float()
+    out = out.reshape(T, nrr, C, -1)
+    return out.transpose(1, 2) if channels_first else out.transpose(2, 3)
 
 
 def _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first):
-    """`slab_resample` with `tiles`; the smallest centers of every window
-    of the call are read with one host copy.  The j-tiles' x-windows lie in
-    the union window: their starts come from their centers less the union's
-    start, which subtracts exactly in f32 (an integer from values below
-    2^24), so min and shift commute as JAX's shift-then-min has it."""
-    ext, C = t2.shape[0], t2.shape[2]
+    """`slab_resample` with `tiles` on t2 [ext, C, ext]; every window's start
+    of the call is found on the device and read with one host copy.  The
+    j-tiles' x-windows lie in the union window: their starts come from their
+    centers less the union's start, which subtracts exactly in f32 (an
+    integer from values below 2^24), so min and shift commute as JAX's
+    shift-then-min has it."""
+    ext, C = t2.shape[0], t2.shape[1]
     T, nrr = cy.shape
     gi, wy_t, gj, wx_t, wxu = tiles
     wxu = min(wxu, ext)
     wy_t = min(wy_t, ext)
     wx_t = min(wx_t, wxu)
-    y_mins, x_mins = _tile_mins(cy, gi), _tile_mins(cx, gj)
-    mins = host_read(torch.stack(y_mins + x_mins + [cx.amin()]), "window")
-    y0s = [_win_start(m, ext, wy_t) for m in mins[:len(y_mins)]]
-    x0u = _win_start(mins[-1], ext, wxu) if wxu < ext else 0
-    x0s = [_win_start(m - x0u, wxu, wx_t) for m in mins[len(y_mins):-1]]
+    x0u = _win_starts(cx.amin(), ext, wxu)
+    starts = host_read(torch.cat([_win_starts(_tile_mins(cy, gi), ext, wy_t),
+                                  _win_starts(_tile_mins(cx, gj) - x0u, wxu, wx_t),
+                                  x0u[None]]).long(), "window")
+    ny = -(-nrr // gi)
+    y0s, x0s, x0u = starts[:ny], starts[ny:-1], starts[-1]
     cx = cx - x0u
-    t2 = t2[:, x0u:x0u + wxu].to(compute_dtype)
+    t2 = t2[:, :, x0u:x0u + wxu].to(compute_dtype, memory_format=torch.contiguous_format)
     # stage 1: per-i-tile y-windows, y contracted, x carried
     vs = []
     for i0, y0 in zip(range(0, nrr, gi), y0s):
         Wy = _band_weights(cy[:, i0:i0 + gi] - y0, wy_t, dtype=compute_dtype)
-        vs.append(torch.matmul(Wy, t2[y0:y0 + wy_t].reshape(wy_t, wxu * C)))
-    v = torch.cat(vs, dim=1).reshape(T, nrr, wxu, C)
+        vs.append(torch.matmul(Wy, t2[y0:y0 + wy_t].reshape(wy_t, C * wxu)))
+    v = torch.cat(vs, dim=1).reshape(T, nrr, C, wxu)
     # stage 2: per-j-tile x-windows sliced from the intermediate
     outs = []
     for j0, x0 in zip(range(0, nrr, gj), x0s):
         Wx = _band_weights(cx[:, j0:j0 + gj] - x0, wx_t, dtype=compute_dtype)
-        outs.append(_stage2(v[:, :, x0:x0 + wx_t], Wx, channels_first))
+        outs.append(_stage2(v[..., x0:x0 + wx_t], Wx, channels_first))
     return torch.cat(outs, dim=-1 if channels_first else 2)
 
 
 def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
-    """Shear all plane textures once (shared across every depth slab)."""
+    """Shear all plane textures once (shared across every depth slab):
+    `tex` [N*3, ext, C, ext], rows, channels, columns, so that a window's
+    rows are one block and stage 1's product keeps each output row's
+    channels together."""
     n, q, S, _, c = planes.shape
     a, b, d1, d2, F0, F1, flip = factor_shears(coeffs["B"], coeffs["E0"],
                                                coeffs["E1"])
@@ -268,8 +323,9 @@ def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
     tex = torch.where(flip.reshape(n * q)[:, None, None, None],
                       tex.transpose(1, 2), tex)
     a, b = a.reshape(-1), b.reshape(-1)
-    sheared = torch.stack([shear_texture(tex[i], a[i], b[i], compute_dtype)
-                           for i in range(n * q)])
+    sheared = torch.stack([
+        shear_texture(tex[i], a[i], b[i], compute_dtype).transpose(1, 2)
+        for i in range(n * q)])
     return {"tex": sheared, "d1": d1.reshape(-1), "d2": d2.reshape(-1),
             "F0": F0.reshape(-1, 2), "F1": F1.reshape(-1, 2), "n": n, "q": q}
 
@@ -277,27 +333,31 @@ def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
 def sample_slabs_prepared(prep, t_vals, nrr, compute_dtype=torch.float32,
                           win=None, tiles=None, channels_first=False):
     """[N, T, nrr, nrr, C] (or [N, T, C, nrr, nrr]) mean-over-planes
-    features for depth values t_vals [N, T], in compute_dtype."""
+    features for depth values t_vals [N, T], in compute_dtype: one
+    `resample_slabs` over every image and plane, or with `tiles` one
+    tiled resample per image and plane."""
+    if tiles is None:
+        return resample_slabs(prep["tex"], t_vals, prep["d1"], prep["d2"], prep["F0"],
+                              prep["F1"], nrr, compute_dtype, win=win,
+                              channels_first=channels_first)
     n, q = prep["n"], prep["q"]
+    cy, cx = _centers(t_vals, prep["d1"], prep["d2"], prep["F0"], prep["F1"], nrr)
     out = []
     for i in range(n):
         acc = 0.0
-        for qi in range(q):
-            k = i * q + qi
-            acc = acc + slab_resample(prep["tex"][k], t_vals[i], prep["d1"][k],
-                                      prep["d2"][k], prep["F0"][k], prep["F1"][k],
-                                      nrr, compute_dtype, win=win, tiles=tiles,
-                                      channels_first=channels_first)
+        for k in range(i * q, i * q + q):
+            acc = acc + _tiled_resample(prep["tex"][k], cy[k], cx[k], tiles,
+                                        compute_dtype, channels_first)
         out.append((acc / q).to(compute_dtype))
     return torch.stack(out)
 
 
 def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
     """0-dim bool tensor: does ANY chunk's contraction window miss a tap the
-    full contraction would use?  Mirrors `slab_resample`'s window math
-    (same centers, same floor/clip/multiple-of-8 start) outside the hot
-    loop; off-texture centers give zeros on both paths, so they are clipped
-    to the texture before the comparison.  With `tiles`, checks the tiled
+    full contraction would use?  Mirrors the resample's window math (the
+    centers as JAX's guard orders them, the same `_win_starts`) outside the
+    hot loop; off-texture centers give zeros on both paths, so they are
+    clipped to the texture before the comparison.  With `tiles`, checks the tiled
     path: per-i-tile y-windows and the union x-window against the texture,
     per-j-tile x-windows against the union window."""
     ext = prep["tex"].shape[1]
@@ -314,10 +374,6 @@ def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
         t = ch[:, None, :, :, None]
         return t * d * ii + f0 + t * f1 + MARGIN              # [N, q, CH, TC, nrr]
 
-    def start(c, red, in_len, win_len):
-        lo = torch.floor(c.amin(dim=red)) - 2.0
-        return torch.floor(lo.clamp(0, in_len - win_len) / 8) * 8
-
     def win_bad(c, cc, in_len, win_len, group=None):
         """Coverage failure of the window over the trailing output axis
         (optionally split into tiles of `group` outputs).  `c` drives the
@@ -329,7 +385,7 @@ def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
             c = c.reshape(*c.shape[:4], -1, group)
             cc = cc.reshape(*cc.shape[:4], -1, group)
             red = (3, 5)
-        s = start(c, red, in_len, win_len)
+        s = _win_starts(c.amin(dim=red), in_len, win_len)
         hi_bad = cc.amax(dim=red) > s + (win_len - 1.0)
         lo_bad = cc.amin(dim=red) < s
         return (hi_bad | lo_bad).any()
@@ -347,7 +403,7 @@ def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
         ccx = cx.clamp(0.0, ext - 1.0)
         if wxu < ext:
             bad = bad | win_bad(cx, ccx, ext, wxu)
-            x0u = start(cx, (3, 4), ext, wxu)[..., None, None]
+            x0u = _win_starts(cx.amin(dim=(3, 4)), ext, wxu)[..., None, None]
             cx, ccx = cx - x0u, ccx - x0u
         if wx_t < wxu:
             bad = bad | win_bad(cx, ccx, wxu, wx_t, group=gj)
@@ -427,6 +483,11 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     coeffs = frustum_coeffs(cam2world, intrinsics, nrr, S, opts["box_warp"])
     with annotate("render.prepare"):
         prep = prepare_textures(planes, coeffs, compute_dtype)
+        if not torch.is_grad_enabled():
+            # one cast of the textures, not one of each chunk's windows; with
+            # gradients the windows cast, so the textures' gradient sums the
+            # chunks in f32 as JAX's does
+            prep["tex"] = prep["tex"].to(compute_dtype)
 
     # per-ray direction norms (z-depth t -> Euclidean depth t*|d|)
     ii = (torch.arange(nrr, dtype=torch.float32, device=dev) + 0.5) / nrr
@@ -495,10 +556,10 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     # Per-chunk rematerialization (JAX `frustum.py:635-672`): with
     # gradients, each chunk's decode+composite is recomputed in the backward
     # pass, so only the carry survives a chunk, not its slab features,
-    # decoder activations and colors (O(T * nrr^2 * 64) at nrr 128).  The
-    # recompute repeats the chunk's window-start syncs.  Without gradients
-    # (serving) nothing changes.  Off with rendering_kwargs['frustum_remat']
-    # = False.
+    # decoder activations and colors (O(T * nrr^2 * 64) at nrr 128).  With
+    # `tiles` the recompute repeats the chunk's window-start syncs.  Without
+    # gradients (serving) nothing changes.  Off with
+    # rendering_kwargs['frustum_remat'] = False.
     rematerialize = opts.get("frustum_remat", True) and torch.is_grad_enabled()
 
     def remat(fn, *args):

@@ -127,7 +127,8 @@ def test_prepared_slabs_and_coverage_guard(chunk, window):
     tc = tfr.frustum_coeffs(t(c2w), t(intr), 16, 64, 1.0)
     jprep = jfr.prepare_textures(jnp.asarray(planes), jc)
     tprep = tfr.prepare_textures(t(planes), tc)
-    np.testing.assert_allclose(tprep["tex"].numpy(), np.asarray(jprep["tex"]), **TOL)
+    np.testing.assert_allclose(tprep["tex"].transpose(2, 3).numpy(), np.asarray(jprep["tex"]),
+                               **TOL)
     t_vals = np.tile(np.linspace(2.2, 3.1, 16, dtype=np.float32), (2, 1))
     for cf in (False, True):
         want = jfr.sample_slabs_prepared(jprep, jnp.asarray(t_vals[:, :chunk]), 16,
@@ -139,6 +140,65 @@ def test_prepared_slabs_and_coverage_guard(chunk, window):
         assert bool(tfr.window_coverage_violation(tprep, t(t_vals), 16, win, chunk)) \
             == bool(jfr.window_coverage_violation(jprep, jnp.asarray(t_vals), 16,
                                                   win, chunk))
+
+
+def _three_cameras_prepared(S, nrr, C, seed):
+    """Both packages' `prepare_textures` outputs for three images, each with
+    its own camera (the orbit's centre and two extremes), over random
+    sheared textures, and those textures [9, ext, ext, C] (ext = S +
+    2*MARGIN) in JAX's layout."""
+    c2w, intr = (np.concatenate(x) for x in zip(*(
+        _camera(np.pi / 2 + dy, np.pi / 2 + dp) for dy, dp in
+        ((0.0, 0.0), (0.6, -0.4), (-0.6, 0.4)))))
+    jc = jfr.frustum_coeffs(c2w, intr, nrr, S, 1.0)
+    tc = tfr.frustum_coeffs(t(c2w), t(intr), nrr, S, 1.0)
+    ext = S + 2 * jfr.MARGIN
+    tex = np.random.RandomState(seed).randn(9, ext, ext, C).astype(np.float32)
+    preps = []
+    for mod, c, arr in ((jfr, jc, jnp.asarray(tex)), (tfr, tc, t(tex.transpose(0, 1, 3, 2)))):
+        _, _, d1, d2, F0, F1, _ = mod.factor_shears(c["B"], c["E0"], c["E1"])
+        preps.append({"tex": arr, "d1": d1.reshape(-1), "d2": d2.reshape(-1),
+                      "F0": F0.reshape(-1, 2), "F1": F1.reshape(-1, 2), "n": 3, "q": 3})
+    return preps, tex
+
+
+@pytest.mark.parametrize("win", [None, (384, 448), (200, 96)])
+@pytest.mark.parametrize("channels_first", [False, True])
+@pytest.mark.parametrize("poisoned", [False, True])
+def test_batched_slabs(win, channels_first, poisoned):
+    """`sample_slabs_prepared` resamples every image and plane of a chunk in
+    one batch: against JAX's per-image map and against a loop of
+    per-texture `slab_resample` calls, on three cameras whose window starts
+    differ across images and planes; a NaN-poisoned depth row gives NaN
+    where JAX's does."""
+    nrr = 16
+    (jprep, tprep), tex = _three_cameras_prepared(256, nrr, 4, seed=7)
+    t_vals = np.tile(np.linspace(2.8, 3.1, 4, dtype=np.float32), (3, 1))
+    t_vals += np.float32(0.05) * np.arange(3, dtype=np.float32)[:, None]
+    if poisoned:
+        t_vals[1] = np.nan
+    ext = tprep["tex"].shape[1]
+    centers = tfr._centers(t(t_vals), *(tprep[k] for k in ("d1", "d2", "F0", "F1")), nrr)
+    starts = torch.stack([   # [axis, image, plane] at this window or the default one
+        tfr._win_starts(c.amin(dim=(1, 2)), ext, min(w, ext)).reshape(3, 3)
+        for c, w in zip(centers, win or (384, 448))])
+    live = starts[:, [0, 2]]
+    assert (live != live[:, :1]).any() and (live != live[:, :, :1]).any()
+    want = np.asarray(jfr.sample_slabs_prepared(jprep, jnp.asarray(t_vals), nrr, win=win,
+                                                channels_first=channels_first))
+    got = tfr.sample_slabs_prepared(tprep, t(t_vals), nrr, win=win,
+                                    channels_first=channels_first)
+    loop = torch.stack([
+        sum(tfr.slab_resample(t(tex[k]), t(t_vals[i]), tprep["d1"][k],
+                              tprep["d2"][k], tprep["F0"][k], tprep["F1"][k], nrr,
+                              win=win, channels_first=channels_first)
+            for k in range(3 * i, 3 * i + 3)) / 3 for i in range(3)])
+    assert got.shape == want.shape
+    nan = np.isnan(want)
+    assert nan.any() == poisoned and nan[[0, 2]].sum() == 0
+    np.testing.assert_array_equal(np.isnan(got.numpy()), nan)
+    np.testing.assert_allclose(got.numpy(), want, equal_nan=True, **TOL)
+    np.testing.assert_allclose(got.numpy(), loop.numpy(), equal_nan=True, **TOL)
 
 
 def _decoder(sem_sigmoid, seed):
@@ -210,11 +270,12 @@ def test_tiled_slab_resample(tiles, channels_first):
     np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("kw,copied", [(dict(tiles=(4, 96, 4, 96, 256)), 9),
-                                       (dict(win=(200, 96)), 2)])
+@pytest.mark.parametrize("kw,copied", [(dict(tiles=(4, 96, 4, 96, 256)), [9]),
+                                       (dict(win=(200, 96)), [])])
 def test_slab_resample_reads_its_window_starts_once(monkeypatch, kw, copied):
-    """One host copy of every window's smallest center per call: 4 + 4 tiles
-    and the union window, or the window's two axes; no other sync."""
+    """The tiled path reads every window's start of a call with one host
+    copy (4 + 4 tiles and the union window); the window path finds its
+    starts on the device and reads nothing back; no other sync."""
     calls = []
     real = torch.Tensor.tolist
 
@@ -228,7 +289,7 @@ def test_slab_resample_reads_its_window_starts_once(monkeypatch, kw, copied):
     monkeypatch.setattr(torch.Tensor, "item", lambda self: calls.append("item"))
     tfr.slab_resample(t(rng.randn(ext, ext, 4)), t(np.linspace(2.0, 2.4, 5)), 0.9,
                       1.1, t([40.0, 30.0]), t([5.0, -4.0]), 16, **kw)
-    assert calls == [copied]
+    assert calls == copied
 
 
 def _factored(yaw, pitch, S, nrr, T):
