@@ -57,7 +57,7 @@ from .. import bridge
 from ..models.triplane import init_parameters, update_w_avg
 from ..train.ema import copy_buffers, ema_beta, ema_update
 from ..train.loss import blur_size_bucket
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, host_read
 from .multihost import all_reduce_max_, all_reduce_sum_, broadcast_
 
 
@@ -288,8 +288,8 @@ class Trainer:
     def step(self, batch, gen_z, gen_c, generator, *, step_idx, cur_nimg,
              batch_size, ema_kimg=10, ema_rampup=0.05, aug_p=0.0):
         """One training iteration; returns {stat name: [count, sum, sumsq]}
-        (numpy, one transfer from the card; with a group, summed over the
-        ranks).
+        (numpy, one transfer from the card, the `sync.stats` read of
+        `utils/profiling.host_read`; with a group, summed over the ranks).
 
         batch: {image [B, H, W, 3], mask [B, H, W, 1], pose [B, 25]} on the
         networks' device (with a group, this rank's rows); gen_z/gen_c: `[4,
@@ -394,5 +394,5 @@ class Trainer:
         if self.group is not None:
             with annotate("allreduce_stats"):
                 all_reduce_sum_(flat, self.group)
-        flat = flat.cpu().numpy()
+        flat = np.asarray(host_read(flat, "stats"), dtype=np.float32)
         return dict(zip(names, flat))

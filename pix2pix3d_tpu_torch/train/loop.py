@@ -62,6 +62,7 @@ from ..metrics.metric_utils import get_feature_extractor
 from ..parallel.multihost import (all_reduce_max_, barrier, initialize_multihost,
                                   local_batch_slice, world_layout)
 from ..utils.misc import format_time
+from ..utils.profiling import annotate
 from .augment import AugmentPipe, ada_update_p
 from .checkpoint import copy_params_fuzzy, load_checkpoint, save_checkpoint
 from .dataset import DataLoader, build_dataset
@@ -112,6 +113,54 @@ def step_seed(random_seed, rank):
 def to_device(batch, device):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items() if k in ("image", "mask", "pose")}
+
+
+class StepInputs:
+    """What each step of the loop takes, drawn as `training_loop` draws it:
+    the loader's next batch (read and copied to `device` inside a
+    `train.data` span), the four phases' latents `[4, B, z_dim]` from the
+    shared generator (seeded `random_seed * 1000 + 7`) and their poses from
+    `np.random.RandomState(random_seed)` over the dataset's labels, each
+    rank keeping its `rows` of the global batch.  `generator` is the
+    step's own: the shared one at world size 1, else the rank's
+    (`step_seed`)."""
+
+    def __init__(self, dataset, loader, batch_size, rows, z_dim, random_seed,
+                 device, rank=0, world=1):
+        self.dataset = dataset
+        self.loader = loader
+        self.batch_size = batch_size
+        self.start, self.stop = rows
+        self.z_dim = z_dim
+        self.device = device
+        self.shared = torch.Generator(device=device).manual_seed(random_seed * 1000 + 7)
+        self.generator = (self.shared if world == 1 else torch.Generator(device=device)
+                          .manual_seed(step_seed(random_seed, rank)))
+        self.pose_rng = np.random.RandomState(random_seed)
+
+    def __call__(self):
+        """(batch, gen_z, gen_c) of the next step."""
+        start, stop, b = self.start, self.stop, self.batch_size
+        with annotate("train.data"):
+            batch = to_device(next(self.loader), self.device)
+        gen_z = torch.randn((4, b, self.z_dim), generator=self.shared,
+                            device=self.device)[:, start:stop]
+        gen_idx = self.pose_rng.randint(len(self.dataset), size=4 * b)
+        gen_c = torch.from_numpy(np.stack(
+            [self.dataset.get_label(i) for i in
+             gen_idx.reshape(4, b)[:, start:stop].reshape(-1)]).reshape(
+                4, stop - start, -1).astype(np.float32)).to(self.device)
+        return batch, gen_z, gen_c
+
+
+def run_step(trainer, inputs, step_fn=None, **step_kwargs):
+    """One step of the loop: the next `StepInputs`, then `step_fn` (default
+    `Trainer.step`) with the trainer, the inputs, the step's generator and
+    `step_kwargs` (step_idx, cur_nimg, batch_size, ema_kimg, ema_rampup,
+    aug_p).  Returns the step's stats."""
+    batch, gen_z, gen_c = inputs()
+    return (step_fn or Trainer.step)(trainer, batch, gen_z, gen_c, inputs.generator,
+                                     **step_kwargs)
 
 
 @precision.policy(False)
@@ -232,10 +281,8 @@ def training_loop(
                             os.path.join(run_dir, "mask.png"))
     grid_z = np.random.RandomState(random_seed).randn(grid_n, G.z_dim).astype(np.float32)
 
-    shared = torch.Generator(device=device).manual_seed(random_seed * 1000 + 7)
-    generator = (shared if world == 1 else
-                 torch.Generator(device=device).manual_seed(step_seed(random_seed, rank)))
-    pose_rng = np.random.RandomState(random_seed)
+    inputs = StepInputs(dataset, loader, batch_size, (start, stop), G.z_dim, random_seed,
+                        device, rank=rank, world=world)
 
     def checkpoint(name):
         """Rank 0 writes the training state, between two barriers."""
@@ -304,20 +351,10 @@ def training_loop(
     tick_start_time = time.time()
     try:
         while True:
-            batch = to_device(next(loader), device)
-            gen_z = torch.randn((4, batch_size, G.z_dim), generator=shared,
-                                device=device)[:, start:stop]
-            gen_idx = pose_rng.randint(len(dataset), size=4 * batch_size)
-            gen_c = torch.from_numpy(np.stack(
-                [dataset.get_label(i) for i in
-                 gen_idx.reshape(4, batch_size)[:, start:stop].reshape(-1)]).reshape(
-                    4, per_rank, -1).astype(np.float32)).to(device)
-
             t_step = time.time()
-            stats = (step_fn or Trainer.step)(
-                trainer, batch, gen_z, gen_c, generator, step_idx=step_idx,
-                cur_nimg=cur_nimg, batch_size=batch_size, ema_kimg=ema_kimg,
-                ema_rampup=ema_rampup, aug_p=augment_p)
+            stats = run_step(trainer, inputs, step_fn, step_idx=step_idx,
+                             cur_nimg=cur_nimg, batch_size=batch_size, ema_kimg=ema_kimg,
+                             ema_rampup=ema_rampup, aug_p=augment_p)
             collector.update(stats)
             dt_step = time.time() - t_step
             if lead and (step_idx < 3 or step_idx in (4, 16) or step_idx % 100 == 0):
