@@ -6,9 +6,10 @@
 Phases, each printing its name and wall time:
 
 1. device   -- CUDA card present; its name and `nvidia-smi` name/power limit.
-2. build    -- nvcc builds both kernels for sm_90a from `csrc/`, one nvcc
-               process each, started together: `decode_composite.cu` and
-               `late_separate_decode.cu`; ptxas's registers and spills for
+2. build    -- nvcc builds the port's kernels for sm_90a from `csrc/`, one
+               nvcc process each, started together: `decode_composite.cu`,
+               `late_separate_decode.cu` and `shear_textures.cu`
+               (`cuda_build.KERNELS`); ptxas's registers and spills for
                each kernel function (each dtype instantiation).
 3. kernel   -- the decode+composite kernel against its plain PyTorch
                version at the main-path shape (N=1, T=64 in chunks of 8,
@@ -285,7 +286,25 @@ time and the generator's parameter count; their paths join
                `slab_resample` calls over the same prepared textures
                (SLABS_TOL in bf16), both timed (`cuda_ms`), and the
                batch's peak memory.
+35. shear -- the texture-shear kernel (`ops/shear_textures.py`, one launch
+               a render) on the serving render's own inputs, captured at
+               `prepare_textures` from a batch-1 request (K = 3 textures) and
+               an orbit batch of 32 (K = 96), and on six synthetic textures
+               with the slopes at +-MARGIN/S and mixed flips: planes f32
+               (the backbone's strided view) and bf16, output f32 and bf16,
+               each against the plain per-texture shears in f32 (TF32 off),
+               worst error over the largest |plain| gated at SHEAR_TOL
+               (beside it the error of the former bf16 band weights); its
+               device time (a CUDA graph) against the bytes bound (planes
+               read once, textures written once, at 3.35 TB/s); its launches
+               on `serve` (1 a request, batch 1 and 32), on the apps'
+               importance path and on a render with gradients (0 each, the
+               latter's textures carrying a grad_fn); and one serving
+               request with the render under set_sync_debug_mode("error").
 Phases 30-32 launch neither kernel; their paths join `launches_by_path`.
+The shear kernel's launches are counted by phase 35 alone (its paths are in
+its `kernels` entry); the other phases' expectations name the first two
+kernels.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -3304,6 +3323,18 @@ def phase_frustum_tiles(device, card, counts):
 
 
 SLABS_TOL = 1e-2    # bf16 products of other batch shapes: cuBLAS may pick other kernels
+# The shear kernel against the plain shears in f32, worst |difference| over
+# the largest |plain|, by output type.  f32: the plain version rounds each
+# tap's center (up to 512 texels) to f32, 3.1e-5 texels, which moves a tap's
+# weight by up to ~1.5x that; two passes of 4 taps give <= ~1.5e-4 of the
+# largest input, and the output is at most 1.25^2 of it.  bf16: the output's
+# own rounding, 2^-8 of a value, plus the f32 term.
+SHEAR_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-3}
+# six synthetic textures (N = 2): slopes at +-MARGIN/S = 0.5 and in between,
+# both signs, flips mixed
+SHEAR_EDGE_A = ((0.5, -0.5, 0.25), (-0.1, 0.0, 0.45))
+SHEAR_EDGE_B = ((-0.5, 0.5, 0.3), (-0.35, 0.05, 0.0))
+SHEAR_EDGE_FLIP = ((False, True, False), (True, True, False))
 
 
 @contextlib.contextmanager
@@ -3434,6 +3465,155 @@ def phase_render_syncs(device, card):
     phase_done("render-syncs", t0)
 
 
+def shear_bytes(planes, out_dtype):
+    """Bytes of the shears' least traffic: the planes read once, the
+    sheared textures [K, ext, C, ext] written once."""
+    from pix2pix3d_tpu_torch.ops.shear_textures import MARGIN
+    n, q, S, _, c = planes.shape
+    ext = S + 2 * MARGIN
+    return (planes.numel() * planes.element_size()
+            + n * q * ext * c * ext * torch.empty((), dtype=out_dtype).element_size())
+
+
+def check_shears(label, planes, a, b, flip, card):
+    """The kernel against the plain shears in f32 for f32 and bf16 planes
+    (the same strides) and both output types; returns rows of (label,
+    planes dtype, out dtype, worst error over the largest |plain|, device
+    ms, bound ms)."""
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.ops import shear_textures as st
+    rows = []
+    for p_dtype in (torch.float32, torch.bfloat16):
+        p_in = planes.to(p_dtype)
+        with torch.no_grad(), precision.policy(False):
+            want = st.shear_textures_plain(p_in.float(), a, b, flip, torch.float32)
+            scale = want.abs().max().item()
+            former = ""
+            if p_dtype == torch.float32:
+                today = st.shear_textures_plain(p_in, a, b, flip, torch.bfloat16)
+                former = (f"; the former bf16 band weights "
+                          f"{(today.bfloat16().float() - want).abs().max().item() / scale:.3e}")
+                del today
+            for o_dtype in (torch.float32, torch.bfloat16):
+                got = st.shear_textures(p_in, a, b, flip, o_dtype)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"shear {label}: non-finite output")
+                rel = (got.float() - want).abs().max().item() / scale
+                del got
+                if not rel <= SHEAR_TOL[o_dtype]:
+                    raise AssertionError(
+                        f"shear {label} planes {p_dtype} out {o_dtype}: worst error "
+                        f"{rel:.3e} of the largest |plain| > {SHEAR_TOL[o_dtype]}")
+                k_ms = device_ms(lambda: st.shear_textures(p_in, a, b, flip, o_dtype), 5)
+                b_ms = shear_bytes(p_in, o_dtype) / PEAK_BYTES_S * 1e3
+                rows.append((label, p_dtype, o_dtype, rel, k_ms, b_ms))
+                log(f"shear {label} K={a.numel()} (flipped {int(flip.sum())}) planes "
+                    f"{str(p_dtype)[6:]} strides {tuple(p_in.stride())} -> "
+                    f"{str(o_dtype)[6:]}: worst error {rel:.3e} of the largest |plain| "
+                    f"{scale:.3f} (tol {SHEAR_TOL[o_dtype]}"
+                    + (former if o_dtype == torch.bfloat16 else "")
+                    + f"); device {k_ms:.4f} ms, bytes bound {b_ms:.4f} ms "
+                    f"({100 * b_ms / k_ms:.1f}%) [{card}]")
+        del want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_shear(device, card):
+    """Phase 35: the texture-shear kernel against the plain shears on the
+    serving render's inputs and on edge slopes, its device time and bound,
+    its launches by path, and a serving request with no host sync; returns
+    its `kernels` entry."""
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.models import build_generator
+    from pix2pix3d_tpu_torch.models import triplane
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.ops import shear_textures as st
+    from pix2pix3d_tpu_torch.render import frustum
+    t0 = time.time()
+    nrr = config.SERVING_NEURAL_RENDERING_RESOLUTION
+    G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
+    counts = PathCounts({"shear_textures": st.shear_textures})
+    captured = {}
+    real = frustum.prepare_textures
+
+    def recording(planes, coeffs, compute_dtype=torch.float32):
+        captured.setdefault(planes.shape[0], (planes, coeffs))
+        return real(planes, coeffs, compute_dtype)
+
+    def request(inputs, G_=G, nrr_=nrr):
+        z, pose, batch = inputs
+        with torch.no_grad(), precision.policy(True):
+            return G_(z, pose, batch, neural_rendering_resolution=nrr_,
+                      noise_mode="const", det=True)
+
+    one, b32 = request_inputs(G, 0, device), orbit_inputs(G, 32, 1, device)
+    request(one)                  # warm-up
+    frustum.prepare_textures = recording
+    try:
+        counts.requests("serve", lambda: request(one), 3, {"shear_textures": 1})
+        counts.requests("serve-b32", lambda: request(b32), 1, {"shear_textures": 1})
+    finally:
+        frustum.prepare_textures = real
+    with no_sync_in(triplane, "frustum_render"):
+        counts.requests("serve-nosync", lambda: request(one), 1, {"shear_textures": 1})
+    log("shear: a serving request with the render under set_sync_debug_mode('error'): "
+        "no sync, one launch")
+
+    # a render with gradients keeps the differentiable shears
+    planes1, coeffs1 = captured[1]
+    leaf = planes1.detach().requires_grad_(True)
+    prep = counts.run("grad", lambda: frustum.prepare_textures(leaf, coeffs1,
+                                                               torch.bfloat16))
+    if prep["tex"].grad_fn is None or counts.by_path["shear_textures"]["grad"]:
+        raise AssertionError("shear: with gradients the textures must come from the "
+                             "differentiable shears, without a launch")
+    del prep, leaf, planes1, coeffs1
+
+    rows = []
+    for n in (1, 32):
+        planes, coeffs = captured.pop(n)
+        a, b, _, _, _, _, flip = frustum.factor_shears(coeffs["B"], coeffs["E0"],
+                                                       coeffs["E1"])
+        log(f"shear: batch {n} slopes a {a.min().item():+.4f}..{a.max().item():+.4f}, "
+            f"b {b.min().item():+.4f}..{b.max().item():+.4f}")
+        rows += check_shears(f"serve-b{n}", planes, a, b, flip, card)
+        del planes, coeffs, a, b, flip
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(35)
+    S = G.backbone.synthesis.img_resolution
+    edge = triplane._reshape_planes(torch.randn((2, 3 * 32, S, S), generator=gen,
+                                                device=device))
+    rows += check_shears("edges", edge,
+                         torch.tensor(SHEAR_EDGE_A, device=device),
+                         torch.tensor(SHEAR_EDGE_B, device=device),
+                         torch.tensor(SHEAR_EDGE_FLIP, device=device), card)
+    del G, edge
+    torch.cuda.empty_cache()
+
+    # the apps' importance renderer never shears
+    G_imp = build_generator(device=device, seed=0,
+                            **config.preset_generator_config("seg2cat"))
+    imp = request_inputs(G_imp, 0, device)
+    request(imp, G_imp, APP_NRR)  # warm-up
+    counts.requests("serve-importance", lambda: request(imp, G_imp, APP_NRR), 1,
+                    {"shear_textures": 0})
+    del G_imp, imp
+    torch.cuda.empty_cache()
+    log(f"shear: launches by path {counts.by_path['shear_textures']}")
+    phase_done("shear", t0)
+    main_row = next(r for r in rows if r[0] == "serve-b32" and r[1] == torch.float32
+                    and r[2] == torch.bfloat16)
+    return {"name": "shear_textures", "route": "cuda",
+            "source": "pix2pix3d_tpu_torch/csrc/shear_textures.cu",
+            "replaces": "pix2pix3d_tpu/render/frustum.py shear_texture (plain XLA)",
+            "launches": counts.by_path["shear_textures"]["serve"],
+            "max_rel_err": max(r[3] for r in rows), "device_ms": main_row[4],
+            "bound_ms": main_row[5], "bound_by": "bytes",
+            "launches_by_path": counts.by_path["shear_textures"]}
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -3480,7 +3660,7 @@ def main():
             log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
 
-    for so in cuda_build.build(dc.NAME, lsd.NAME, log=build_log):
+    for so in cuda_build.build(*cuda_build.KERNELS, log=build_log):
         log(f"built {os.path.relpath(so, ROOT)}")
     phase_done("build", t0)
 
@@ -3864,6 +4044,8 @@ def main():
         phase_frustum_tiles(device, card, counts)
         # ---- 34. no host sync inside the frustum render
         phase_render_syncs(device, card)
+        # ---- 35. the texture-shear kernel
+        shear_entry = phase_shear(device, card)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]
@@ -3876,6 +4058,7 @@ def main():
         "library_ms": dlibc_ms, "device_ms": dk_ms, "plain_device_ms": dp_ms,
         "library_device_ms": dlib_ms,
         "launches_by_path": counts.by_path["late_separate_decode"]})
+    report.append(shear_entry)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -5,7 +5,8 @@ compiles it with `nvcc` for sm_90a (Hopper) into
 `_build/lib<name>_<hash>.so`, where the hash covers the source, the shared
 headers `csrc/*.cuh` and the flags, so an edit rebuilds and an unchanged
 tree reuses the library.  Several kernels build at once, one `nvcc` process
-each.  `load` opens the library with `ctypes`.
+each.  `load` builds all of `KERNELS` that are missing and opens the one
+asked for with `ctypes`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# every kernel of the port: the first `load` builds them all at once
+KERNELS = ("decode_composite", "late_separate_decode", "shear_textures")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -95,9 +98,11 @@ def refuse_autograd(name, *tensors):
 
 
 def load(name, symbol, argtypes):
-    """The C function `symbol` of kernel `name` (built if needed), with its
-    argument types set and an int (cudaError_t) result."""
-    fn = getattr(ctypes.CDLL(str(build(name)[0])), symbol)
+    """The C function `symbol` of kernel `name`, with its argument types set
+    and an int (cudaError_t) result.  Builds every kernel of `KERNELS` that
+    is missing, in one `build` call: a cold tree pays one parallel compile,
+    not one serial compile a kernel at its first use."""
+    fn = getattr(ctypes.CDLL(str(build(*KERNELS)[KERNELS.index(name)])), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

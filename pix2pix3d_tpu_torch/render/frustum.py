@@ -6,7 +6,9 @@ so projecting a depth slab onto a tri-plane is an affine resample of the
 plane texture whose 2x2 linear part is t*B with a depth-independent B.
 Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
 
-  1. two texture-side shear passes per plane (once, shared by all slabs),
+  1. two texture-side shear passes per plane (once, shared by all slabs) --
+     without gradients one call of `ops/shear_textures.py` over every image
+     and plane, on the GPU one hand-written CUDA kernel,
   2. per-slab axis-aligned scale+translate (two banded matmuls),
   3. decoder MLP + front-to-back compositing over the slabs -- on the GPU
      the hand-written CUDA kernel `ops/decode_composite.py` when the fused
@@ -38,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import decode_composite
 from ..ops.bias_act import softplus
+from ..ops.shear_textures import MARGIN, shear_textures, shear_textures_plain
 from ..utils.profiling import annotate, host_read
 
 
@@ -49,9 +52,6 @@ def generate_plane_axes():
 
 
 _INV_PLANE_AXES = np.linalg.inv(generate_plane_axes())  # [3, 3, 3]
-
-# static shear margin (texels); |a|,|b| <= MARGIN/S is the supported range
-MARGIN = 128
 
 
 def _safe_div(x, y, eps=1e-8):
@@ -315,17 +315,18 @@ def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
     """Shear all plane textures once (shared across every depth slab):
     `tex` [N*3, ext, C, ext], rows, channels, columns, so that a window's
     rows are one block and stage 1's product keeps each output row's
-    channels together."""
-    n, q, S, _, c = planes.shape
+    channels together.  Without gradients one `ops.shear_textures` call
+    shears every texture (on the card one kernel launch) into
+    compute_dtype; with gradients the per-texture band-matrix shears run,
+    f32, and each window is cast where the slabs read it, so the textures'
+    gradient sums the chunks in f32 as JAX's does."""
+    n, q = planes.shape[:2]
     a, b, d1, d2, F0, F1, flip = factor_shears(coeffs["B"], coeffs["E0"],
                                                coeffs["E1"])
-    tex = planes.reshape(n * q, S, S, c)
-    tex = torch.where(flip.reshape(n * q)[:, None, None, None],
-                      tex.transpose(1, 2), tex)
-    a, b = a.reshape(-1), b.reshape(-1)
-    sheared = torch.stack([
-        shear_texture(tex[i], a[i], b[i], compute_dtype).transpose(1, 2)
-        for i in range(n * q)])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (planes, a, b)):
+        sheared = shear_textures_plain(planes, a, b, flip, compute_dtype)
+    else:
+        sheared = shear_textures(planes, a, b, flip, compute_dtype)
     return {"tex": sheared, "d1": d1.reshape(-1), "d2": d2.reshape(-1),
             "F0": F0.reshape(-1, 2), "F1": F1.reshape(-1, 2), "n": n, "q": q}
 
@@ -483,11 +484,6 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     coeffs = frustum_coeffs(cam2world, intrinsics, nrr, S, opts["box_warp"])
     with annotate("render.prepare"):
         prep = prepare_textures(planes, coeffs, compute_dtype)
-        if not torch.is_grad_enabled():
-            # one cast of the textures, not one of each chunk's windows; with
-            # gradients the windows cast, so the textures' gradient sums the
-            # chunks in f32 as JAX's does
-            prep["tex"] = prep["tex"].to(compute_dtype)
 
     # per-ray direction norms (z-depth t -> Euclidean depth t*|d|)
     ii = (torch.arange(nrr, dtype=torch.float32, device=dev) + 0.5) / nrr
