@@ -272,20 +272,18 @@ time and the generator's parameter count; their paths join
                launch each) against the default window's on the same inputs,
                f32 with TF32 off (render outputs TILES_TOL, SR outputs
                FUSED_TOL); undersized tiles at yaw +0.6, pitch -0.4 NaN-poison
-               the render; request ms as served, tiles and default window in
-               turns.
+               the render.
 34. render-syncs -- the frustum render makes no host sync: the serving
                request at batch 1 and a batch of 32 (orbit cameras, as the
                seg2cat-batch32 cell draws them) through the serving
                generator, with the render inside
                `torch.cuda.set_sync_debug_mode("error")` (any sync raises);
-               as a control, the tiled path (`frustum_tiles`), which reads
-               its window starts with `host_read`, must raise there.  Then
-               the batch-32 render's first chunk: `sample_slabs_prepared`
-               (one batched resample) against the loop of per-texture
-               `slab_resample` calls over the same prepared textures
-               (SLABS_TOL in bf16), both timed (`cuda_ms`), and the
-               batch's peak memory.
+               as a control, the same render with a deliberate `host_read`
+               in each chunk's resample must raise there.  Then the
+               batch-32 render's first chunk: `sample_slabs_prepared` (one
+               batched resample) against `resample_slabs` on one texture at
+               a time over the same prepared textures (SLABS_TOL in bf16),
+               both timed (`cuda_ms`), and the batch's peak memory.
 35. shear -- the texture-shear kernel (`ops/shear_textures.py`, one launch
                a render) on the serving render's own inputs, captured at
                `prepare_textures` from a batch-1 request (K = 3 textures) and
@@ -1165,7 +1163,7 @@ def phase_train_parity(device, card):
                                                    pose_to_conditioning)
     from pix2pix3d_tpu_torch.train.loss import Pix2Pix3DLoss
     from pix2pix3d_tpu_torch.train.lpips import LPIPS
-    from pix2pix3d_tpu_torch.train.trainer import Trainer
+    from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
     cfg = config.generator_config(cfg="afhq", resolution=TINY_RES, data_type="seg",
                                   semantic_channels=6, cbase=512, cmax=16,
@@ -1346,7 +1344,7 @@ def phase_train(device, card, counts):
     from pix2pix3d_tpu_torch.train import __main__ as cli
     from pix2pix3d_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from pix2pix3d_tpu_torch.train.loop import build_training
-    from pix2pix3d_tpu_torch.train.trainer import Trainer
+    from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
     record = {"ms": [], "peak": []}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1621,7 +1619,7 @@ def small_batch(device, b=TINY_B):
 def phase_grads(loss, module, fn):
     """(loss value, {parameter: gradient}) of `fn()` (a phase returning
     (loss, aux)) w.r.t. `module`, the other networks frozen."""
-    from pix2pix3d_tpu_torch.train.trainer import _set_trainable
+    from pix2pix3d_tpu_torch.parallel.trainer import _set_trainable
     nets = (loss.G, loss.D, loss.D_semantic)
     _set_trainable(module, nets)
     value, _ = fn(loss)
@@ -1676,7 +1674,7 @@ def run_recipe(path, flags, folder, tmp, device, card, counts, after=None,
     it).  Returns (run directory, {"ms", "peak"})."""
     from pix2pix3d_tpu_torch.train import __main__ as cli
     from pix2pix3d_tpu_torch.train.loop import training_loop
-    from pix2pix3d_tpu_torch.train.trainer import Trainer
+    from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
     imgs, masks = folder
     tick = 4 * (tick_steps or steps) / 1e3
@@ -2650,7 +2648,7 @@ def ddp_rank(rank, coordinator, argv, out):
     from pix2pix3d_tpu_torch.parallel.multihost import initialize_multihost
     from pix2pix3d_tpu_torch.train import __main__ as cli
     from pix2pix3d_tpu_torch.train.loop import training_loop
-    from pix2pix3d_tpu_torch.train.trainer import Trainer
+    from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
     group = initialize_multihost(coordinator, 2, rank, device="cuda:0", backend="gloo",
                                  timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
@@ -3258,8 +3256,7 @@ def phase_frustum_tiles(device, card, counts):
     nrr//4, 96, 256) at nrr 128, full seg2cat width: 3 requests against the
     default-window request on the same inputs, f32 with TF32 off (1
     decode_composite launch each); an out-of-envelope camera with small
-    tiles NaN-poisons the render; request ms as served (bf16 slabs, TF32),
-    tiles and default window in turns."""
+    tiles NaN-poisons the render."""
     from pix2pix3d_tpu_torch import config
     from pix2pix3d_tpu_torch.models import build_generator
     from pix2pix3d_tpu_torch.ops import precision
@@ -3271,7 +3268,6 @@ def phase_frustum_tiles(device, card, counts):
     tiles = (nrr // 4, 96, nrr // 4, 96, 256)
     G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
     rk = G.rendering_kwargs
-    serving = dict(rk)
     z, pose, batch = request_inputs(G, 0, device)
 
     def request(tf32=True, force_fp32=False):
@@ -3305,18 +3301,6 @@ def phase_frustum_tiles(device, card, counts):
         raise AssertionError("undersized tiles out of the envelope gave a finite render")
     log(f"frustum-tiles {rk['frustum_tiles']} at yaw +0.6, pitch -0.4: render "
         f"NaN-poisoned (the coverage guard)")
-    # as served, in turns
-    rk.clear()
-    rk.update(serving)
-    request()
-    times = {"tiles": [], "window": []}
-    for _ in range(3):
-        for name in ("tiles", "window"):
-            rk["frustum_tiles"] = tiles if name == "tiles" else None
-            times[name] += timed_requests(request, 1)[0]
-    log("frustum-tiles as served (bf16 slabs, TF32), ms in turns: " + "; ".join(
-        f"{k} {[round(t, 3) for t in v]} median {statistics.median(v):.3f}"
-        for k, v in times.items()) + f" [{card}]")
     del G
     torch.cuda.empty_cache()
     phase_done("frustum-tiles", t0)
@@ -3379,13 +3363,15 @@ def orbit_inputs(G, n, seed, device):
 
 def phase_render_syncs(device, card):
     """Phase 34: no host sync inside the frustum render (batch 1 and 32),
-    the tiled path as the control; the batched slabs against the
-    per-texture loop on one chunk of the batch-32 render."""
+    a deliberate host read as the control; the batched slabs against
+    `resample_slabs` on one texture at a time on one chunk of the batch-32
+    render."""
     from pix2pix3d_tpu_torch import config
     from pix2pix3d_tpu_torch.models import build_generator
     from pix2pix3d_tpu_torch.models import triplane
     from pix2pix3d_tpu_torch.ops import precision
     from pix2pix3d_tpu_torch.render import frustum
+    from pix2pix3d_tpu_torch.utils.profiling import host_read
     t0 = time.time()
     nrr = config.SERVING_NEURAL_RENDERING_RESOLUTION
     G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
@@ -3403,16 +3389,23 @@ def phase_render_syncs(device, card):
         out = request(one)
     check_shapes(out, {"image": (1, G.img_resolution, G.img_resolution, 3)})
     log("render-syncs: batch 1, the render under set_sync_debug_mode('error'): no sync")
-    rk["frustum_tiles"] = (nrr // 4, 96, nrr // 4, 96, 256)
+    real_slabs = frustum.sample_slabs_prepared
+
+    def reading(prep, t_vals, *args, **kwargs):
+        host_read(t_vals[:, :1], "control")
+        return real_slabs(prep, t_vals, *args, **kwargs)
+
+    frustum.sample_slabs_prepared = reading
     try:
         with no_sync_in(triplane, "frustum_render"):
             request(one)
     except RuntimeError as e:
-        log(f"render-syncs: control, the tiled path raises: {str(e).splitlines()[0]}")
+        log(f"render-syncs: control, a host_read in the render raises: "
+            f"{str(e).splitlines()[0]}")
     else:
-        raise AssertionError("the tiled path's host_read passed the sync check")
+        raise AssertionError("a host_read in the render passed the sync check")
     finally:
-        rk.pop("frustum_tiles")
+        frustum.sample_slabs_prepared = real_slabs
 
     batch = orbit_inputs(G, 32, 1, device)
     request(batch)
@@ -3425,7 +3418,6 @@ def phase_render_syncs(device, card):
             calls.append((prep, t_vals, args, kwargs))
         return real_slabs(prep, t_vals, *args, **kwargs)
 
-    real_slabs = frustum.sample_slabs_prepared
     frustum.sample_slabs_prepared = first_chunk
     try:
         with no_sync_in(triplane, "frustum_render"):
@@ -3446,9 +3438,9 @@ def phase_render_syncs(device, card):
 
     def loop():
         return torch.stack([torch.stack([
-            frustum.slab_resample(tex[k].transpose(1, 2), t_vals[i], prep["d1"][k],
-                                  prep["d2"][k], prep["F0"][k], prep["F1"][k], nrr_,
-                                  dtype, **kw)
+            frustum.resample_slabs(tex[k:k + 1], t_vals[i:i + 1], prep["d1"][k:k + 1],
+                                   prep["d2"][k:k + 1], prep["F0"][k:k + 1],
+                                   prep["F1"][k:k + 1], nrr_, dtype, **kw)[0].float()
             for k in range(3 * i, 3 * i + 3)]).mean(0).to(dtype)
             for i in range(prep["n"])])
 
@@ -3456,7 +3448,7 @@ def phase_render_syncs(device, card):
         got, want = batched(), loop()
         abs_e, rel_e, used, rms = compare((got,), (want,), SLABS_TOL)
         b_ms, l_ms = cuda_ms(batched, 5), cuda_ms(loop, 3)
-    log(f"render-syncs: batched slabs vs per-texture loop, chunk {tuple(got.shape)} "
+    log(f"render-syncs: batched slabs vs one texture at a time, chunk {tuple(got.shape)} "
         f"{str(dtype)[6:]} window {kw['win']}: max abs {abs_e:.3e} rel {rel_e:.3e} "
         f"({used:.3f} of tol {SLABS_TOL}), RMS {rms:.3e}; ms batched {b_ms:.3f}, "
         f"loop {l_ms:.3f} [{card}]")

@@ -16,17 +16,18 @@ vmapped in `prepare_textures`).  Layout:
     out[k, p, c, o] = sum_y w(y - (p - M + b_k (o - M)))
                       * sum_x w(x - (o - M + a_k y)) * tex_k[y, x, c]
 
-with w the Catmull-Rom taps of `render/frustum._band_weights`, zeros outside
-the texture, M = MARGIN, and tex_k plane k % q of image k // q (transposed
-where flip is set).  The kernel takes its taps and sums in f32 and rounds the
-output once.
+with w the Catmull-Rom taps of `_cubic_weights`, zeros outside the texture,
+M = MARGIN, and tex_k plane k % q of image k // q (transposed where flip is
+set).  The kernel takes its taps and sums in f32 and rounds the output once.
+The plain version, `shear_textures_plain`, is JAX's: per texture
+(`shear_texture`), two dense band-matrix products (`shear_pass`).
 
 `shear_textures` launches the kernel for CUDA tensors and runs
 `shear_textures_plain` for CPU tensors; there is no other fallback.  Each
 launch adds one to `shear_textures.launches`.  It has no backward: with grad
 mode on, an input that requires grad raises on every device
-(`cuda_build.refuse_autograd`); the render keeps the differentiable plain
-shears for that case.
+(`cuda_build.refuse_autograd`); the render calls the differentiable
+`shear_textures_plain` for that case.
 """
 
 from __future__ import annotations
@@ -43,11 +44,50 @@ NAME = "shear_textures"   # csrc/shear_textures.cu
 MARGIN = 128
 
 
+def _cubic_weights(centers, in_len, dtype=torch.float32):
+    """Catmull-Rom taps W[..., o, x] = w(x - c(o)); rows whose center lies
+    outside the input come out all-zero (zeros padding)."""
+    x = torch.arange(in_len, dtype=torch.float32, device=centers.device)
+    d = (x - centers[..., None]).abs()
+    w_near = (1.5 * d - 2.5) * d * d + 1.0
+    w_far = ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0
+    w = torch.where(d < 1.0, w_near, torch.where(d < 2.0, w_far, torch.zeros_like(d)))
+    return w.to(dtype)
+
+
+def shear_pass(tex, slope, out_len, margin, compute_dtype=torch.float32):
+    """out[l, o, c] = tex sampled at (l, (o - margin) + slope*l), cubic taps
+    and zeros padding.  tex [L, X, C] -> [L, out_len, C] (f32)."""
+    L, X, C = tex.shape
+    dev = tex.device
+    lines = torch.arange(L, dtype=torch.float32, device=dev)
+    centers = (torch.arange(out_len, dtype=torch.float32, device=dev)[None, :]
+               - margin + slope * lines[:, None])
+    W = _cubic_weights(centers, X, dtype=compute_dtype)
+    return torch.bmm(W, tex.to(compute_dtype)).float()
+
+
+def shear_texture(tex, a, b, compute_dtype=torch.float32):
+    """Both texture-side shears of one texture, the plain version of the
+    kernel (band matrices in compute_dtype, products in it, f32 result):
+    [S, S, C] -> [S+2M, S+2M, C] covering the extended [-MARGIN, S+MARGIN)
+    range on both axes."""
+    S = tex.shape[0]
+    ext = S + 2 * MARGIN
+    dev = tex.device
+    t1 = shear_pass(tex, a, ext, MARGIN, compute_dtype)        # [S, ext, C]
+    t1t = t1.transpose(0, 1)                                   # [ext, S, C]
+    lines_off = torch.arange(ext, dtype=torch.float32, device=dev) - MARGIN
+    centers = (torch.arange(ext, dtype=torch.float32, device=dev)[None, :]
+               - MARGIN + b * lines_off[:, None])
+    W = _cubic_weights(centers, S, dtype=compute_dtype)
+    t2t = torch.bmm(W, t1t.to(compute_dtype)).float()          # [ext_x, ext_y, C]
+    return t2t.transpose(0, 1)
+
+
 def shear_textures_plain(planes, a, b, flip, compute_dtype=torch.float32):
-    """The per-texture shears of `render/frustum.shear_texture` (band
-    matrices in `compute_dtype`, products in it, f32 result), stacked as
-    [N*q, ext, C, ext]; differentiable."""
-    from ..render.frustum import shear_texture   # the render imports this module
+    """`shear_texture` of every texture, stacked as [N*q, ext, C, ext]
+    (f32); differentiable."""
     n, q, S, _, c = planes.shape
     tex = planes.reshape(n * q, S, S, c)
     tex = torch.where(flip.reshape(n * q)[:, None, None, None], tex.transpose(1, 2), tex)

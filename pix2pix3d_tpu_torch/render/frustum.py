@@ -15,19 +15,15 @@ Factoring B = Shear_x(a) * Shear_y(b) * diag(d1, d2) turns the render into
      decoder params are given, else the unfused decode/composite below.
 
 Planes are `[N, 3, S, S, C]` feature-last as in the JAX package; the
-sheared textures are `[ext, C, ext]` (rows, channels, columns), and
-`slab_resample` takes JAX's `[ext, ext, C]`.  The contraction windows (one
-per chunk, `window`, or per output tile, `tiles` =
-`rendering_kwargs['frustum_tiles']`, opt-in as in JAX), the NaN-poison
-coverage guard and the per-chunk rematerialization of training
-(`frustum_remat`) stay as the JAX package has them.  A window's start
-depends on the depths.  `resample_slabs` finds every texture's starts on
-the device and runs all N*3 windows of a chunk as batched products: no host
-read, one launch sequence a chunk.  The tiled path slices per-tile windows
-with host ints: each tiled resample reads all its starts with one host copy
-(`utils.profiling.host_read`, a `sync.window` span).  Under a profiler the
-render's host work shows as `render.prepare` (the shears) and one
-`render.slabs` span per chunk (the slab resamples).
+sheared textures are `[ext, C, ext]` (rows, channels, columns).  The
+contraction window (one per chunk), the NaN-poison coverage guard and the
+per-chunk rematerialization of training (`frustum_remat`) stay as the JAX
+package has them.  A window's start depends on the depths:
+`resample_slabs` finds every texture's starts on the device and runs all
+N*3 windows of a chunk as batched products, so the render reads nothing
+back to the host.  Under a profiler the render's host work shows as
+`render.prepare` (the shears) and one `render.slabs` span per chunk (the
+slab resamples).
 """
 
 from __future__ import annotations
@@ -41,17 +37,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import decode_composite
 from ..ops.bias_act import softplus
 from ..ops.shear_textures import MARGIN, shear_textures, shear_textures_plain
-from ..utils.profiling import annotate, host_read
-
-
-def generate_plane_axes():
-    """Axis matrices of the 3 canonical planes (ref `renderer.py:23-37`)."""
-    return np.array([[[1, 0, 0], [0, 1, 0], [0, 0, 1]],
-                     [[1, 0, 0], [0, 0, 1], [0, 1, 0]],
-                     [[0, 0, 1], [1, 0, 0], [0, 1, 0]]], dtype=np.float32)
-
-
-_INV_PLANE_AXES = np.linalg.inv(generate_plane_axes())  # [3, 3, 3]
+from ..utils.profiling import annotate
+from .renderer import _INV_PLANE_AXES
 
 
 def _safe_div(x, y, eps=1e-8):
@@ -118,54 +105,11 @@ def factor_shears(B, E0, E1):
     return a, b, d1, d2, F0, F1, flip
 
 
-def _band_weights(centers, in_len, in_offset=0.0, dtype=torch.float32,
-                  kernel="linear"):
-    """Interpolation taps W[..., o, x] = k(x + in_offset - c(o)); rows whose
-    center lies outside the input come out all-zero (zeros padding).
-    'linear' is the 2-tap hat, 'cubic' Catmull-Rom."""
-    x = torch.arange(in_len, dtype=torch.float32, device=centers.device) + in_offset
-    d = (x - centers[..., None]).abs()
-    if kernel == "linear":
-        w = torch.clamp_min(1.0 - d, 0.0)
-    else:
-        w_near = (1.5 * d - 2.5) * d * d + 1.0
-        w_far = ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0
-        w = torch.where(d < 1.0, w_near,
-                        torch.where(d < 2.0, w_far, torch.zeros_like(d)))
-    return w.to(dtype)
-
-
-def _bmm(a, b):
-    """Batched product in the operands' dtype, f32 result."""
-    return torch.bmm(a, b).float()
-
-
-def shear_pass(tex, slope, out_len, margin, compute_dtype=torch.float32):
-    """out[l, o, c] = tex sampled at (l, (o - margin) + slope*l), cubic taps
-    and zeros padding.  tex [L, X, C] -> [L, out_len, C] (f32)."""
-    L, X, C = tex.shape
-    dev = tex.device
-    lines = torch.arange(L, dtype=torch.float32, device=dev)
-    centers = (torch.arange(out_len, dtype=torch.float32, device=dev)[None, :]
-               - margin + slope * lines[:, None])
-    W = _band_weights(centers, X, dtype=compute_dtype, kernel="cubic")
-    return _bmm(W, tex.to(compute_dtype))
-
-
-def shear_texture(tex, a, b, compute_dtype=torch.float32):
-    """Both texture-side shears: [S, S, C] -> [S+2M, S+2M, C] covering the
-    extended [-MARGIN, S+MARGIN) range on both axes."""
-    S = tex.shape[0]
-    ext = S + 2 * MARGIN
-    dev = tex.device
-    t1 = shear_pass(tex, a, ext, MARGIN, compute_dtype)        # [S, ext, C]
-    t1t = t1.transpose(0, 1)                                   # [ext, S, C]
-    lines_off = torch.arange(ext, dtype=torch.float32, device=dev) - MARGIN
-    centers = (torch.arange(ext, dtype=torch.float32, device=dev)[None, :]
-               - MARGIN + b * lines_off[:, None])
-    W = _band_weights(centers, S, dtype=compute_dtype, kernel="cubic")
-    t2t = _bmm(W, t1t.to(compute_dtype))                       # [ext_x, ext_y, C]
-    return t2t.transpose(0, 1)
+def _band_weights(centers, in_len, dtype=torch.float32):
+    """Linear (2-tap hat) taps W[..., o, x] = max(0, 1 - |x - c(o)|); rows
+    whose center lies outside the input come out all-zero (zeros padding)."""
+    x = torch.arange(in_len, dtype=torch.float32, device=centers.device)
+    return torch.clamp_min(1.0 - (x - centers[..., None]).abs(), 0.0).to(dtype)
 
 
 def _win_starts(lo_center, in_len, w):
@@ -239,78 +183,6 @@ def resample_slabs(tex, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32
     return o.permute(0, 1, 2, 3, 5, 4).mean(1)                # [N, T, i, j, C]
 
 
-def _tile_mins(c, group):
-    """The smallest center of each tile of `group` outputs of c [T, nrr]."""
-    return torch.stack([c[:, i0:i0 + group].amin() for i0 in range(0, c.shape[1], group)])
-
-
-def slab_resample(t2, t_vals, d1, d2, F0, F1, nrr, compute_dtype=torch.float32,
-                  win=None, tiles=None, channels_first=False):
-    """Per-slab axis-aligned scale+translate of one sheared texture.
-
-    t2 [ext, ext, C], t_vals [T] -> [T, nrr, nrr, C] (or [T, C, nrr, nrr]
-    with `channels_first`), f32: `resample_slabs` of one texture.
-    `tiles=(gi, wy_t, gj, wx_t, wxu)`: per-output-tile sub-windows (JAX
-    `render/frustum.py:216-263`): a `wxu`-texel union x-window, then stage 1
-    per tile of `gi` output rows on its own `wy_t`-texel y-window, stage 2
-    per tile of `gj` output columns on its own `wx_t`-texel x-window of the
-    stage-1 intermediate; identical to the full contraction wherever the
-    coverage guard passes."""
-    rows = t2.transpose(1, 2)                                 # [ext, C, ext]
-    d1, d2 = (torch.as_tensor(d, dtype=torch.float32, device=t2.device).reshape(1)
-              for d in (d1, d2))
-    if tiles is None:
-        out = resample_slabs(rows[None], t_vals[None], d1, d2, F0[None], F1[None], nrr,
-                             compute_dtype, win=win, channels_first=channels_first)
-        return out[0].float()
-    cy, cx = _centers(t_vals[None], d1, d2, F0[None], F1[None], nrr)
-    return _tiled_resample(rows, cy[0], cx[0], tiles, compute_dtype, channels_first)
-
-
-def _stage2(v, Wx, channels_first):
-    """out[t, i, j, c] = sum_x Wx[t, j, x] v[t, i, c, x]: [T, nrr, J, C], or
-    [T, C, nrr, J] for the fused decode+composite kernel, f32."""
-    T, nrr, C, X = v.shape
-    out = torch.bmm(v.reshape(T, nrr * C, X), Wx.transpose(1, 2)).float()
-    out = out.reshape(T, nrr, C, -1)
-    return out.transpose(1, 2) if channels_first else out.transpose(2, 3)
-
-
-def _tiled_resample(t2, cy, cx, tiles, compute_dtype, channels_first):
-    """`slab_resample` with `tiles` on t2 [ext, C, ext]; every window's start
-    of the call is found on the device and read with one host copy.  The
-    j-tiles' x-windows lie in the union window: their starts come from their
-    centers less the union's start, which subtracts exactly in f32 (an
-    integer from values below 2^24), so min and shift commute as JAX's
-    shift-then-min has it."""
-    ext, C = t2.shape[0], t2.shape[1]
-    T, nrr = cy.shape
-    gi, wy_t, gj, wx_t, wxu = tiles
-    wxu = min(wxu, ext)
-    wy_t = min(wy_t, ext)
-    wx_t = min(wx_t, wxu)
-    x0u = _win_starts(cx.amin(), ext, wxu)
-    starts = host_read(torch.cat([_win_starts(_tile_mins(cy, gi), ext, wy_t),
-                                  _win_starts(_tile_mins(cx, gj) - x0u, wxu, wx_t),
-                                  x0u[None]]).long(), "window")
-    ny = -(-nrr // gi)
-    y0s, x0s, x0u = starts[:ny], starts[ny:-1], starts[-1]
-    cx = cx - x0u
-    t2 = t2[:, :, x0u:x0u + wxu].to(compute_dtype, memory_format=torch.contiguous_format)
-    # stage 1: per-i-tile y-windows, y contracted, x carried
-    vs = []
-    for i0, y0 in zip(range(0, nrr, gi), y0s):
-        Wy = _band_weights(cy[:, i0:i0 + gi] - y0, wy_t, dtype=compute_dtype)
-        vs.append(torch.matmul(Wy, t2[y0:y0 + wy_t].reshape(wy_t, C * wxu)))
-    v = torch.cat(vs, dim=1).reshape(T, nrr, C, wxu)
-    # stage 2: per-j-tile x-windows sliced from the intermediate
-    outs = []
-    for j0, x0 in zip(range(0, nrr, gj), x0s):
-        Wx = _band_weights(cx[:, j0:j0 + gj] - x0, wx_t, dtype=compute_dtype)
-        outs.append(_stage2(v[..., x0:x0 + wx_t], Wx, channels_first))
-    return torch.cat(outs, dim=-1 if channels_first else 2)
-
-
 def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
     """Shear all plane textures once (shared across every depth slab):
     `tex` [N*3, ext, C, ext], rows, channels, columns, so that a window's
@@ -332,25 +204,13 @@ def prepare_textures(planes, coeffs, compute_dtype=torch.float32):
 
 
 def sample_slabs_prepared(prep, t_vals, nrr, compute_dtype=torch.float32,
-                          win=None, tiles=None, channels_first=False):
+                          win=None, channels_first=False):
     """[N, T, nrr, nrr, C] (or [N, T, C, nrr, nrr]) mean-over-planes
     features for depth values t_vals [N, T], in compute_dtype: one
-    `resample_slabs` over every image and plane, or with `tiles` one
-    tiled resample per image and plane."""
-    if tiles is None:
-        return resample_slabs(prep["tex"], t_vals, prep["d1"], prep["d2"], prep["F0"],
-                              prep["F1"], nrr, compute_dtype, win=win,
-                              channels_first=channels_first)
-    n, q = prep["n"], prep["q"]
-    cy, cx = _centers(t_vals, prep["d1"], prep["d2"], prep["F0"], prep["F1"], nrr)
-    out = []
-    for i in range(n):
-        acc = 0.0
-        for k in range(i * q, i * q + q):
-            acc = acc + _tiled_resample(prep["tex"][k], cy[k], cx[k], tiles,
-                                        compute_dtype, channels_first)
-        out.append((acc / q).to(compute_dtype))
-    return torch.stack(out)
+    `resample_slabs` over every image and plane."""
+    return resample_slabs(prep["tex"], t_vals, prep["d1"], prep["d2"], prep["F0"],
+                          prep["F1"], nrr, compute_dtype, win=win,
+                          channels_first=channels_first)
 
 
 def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
@@ -358,9 +218,10 @@ def window_coverage_violation(prep, t_vals, nrr, win, chunk, tiles=None):
     full contraction would use?  Mirrors the resample's window math (the
     centers as JAX's guard orders them, the same `_win_starts`) outside the
     hot loop; off-texture centers give zeros on both paths, so they are
-    clipped to the texture before the comparison.  With `tiles`, checks the tiled
-    path: per-i-tile y-windows and the union x-window against the texture,
-    per-j-tile x-windows against the union window."""
+    clipped to the texture before the comparison.  With `tiles`, checks the
+    tiles as JAX's tiled path has them: per-i-tile y-windows and the union
+    x-window against the texture, per-j-tile x-windows against the union
+    window."""
     ext = prep["tex"].shape[1]
     n, q = prep["n"], prep["q"]
     dev = t_vals.device
@@ -460,9 +321,12 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
                    nrr, depth_steps=None, chunk=None, window=None, tiles=None,
                    compute_dtype=torch.float32, fused_decoder=None):
     """Gather-free render -> (features [N, R, 64], depth [N, R, 1],
-    weights [N, R, 1]), as `ImportanceRenderer` returns them.  `tiles`
-    (gi, wy, gj, wx, union) selects per-output-tile windows; without it or
-    `window`, `default_window` picks one per chunk.
+    weights [N, R, 1]), as `ImportanceRenderer` returns them.  Without
+    `window`, `default_window` picks one per chunk.  `tiles` (gi, wy, gj,
+    wx, union), JAX's per-output-tile windows, takes precedence: the
+    resample contracts full rows and the tiles' union x-window, and the
+    coverage guard checks the tiles, so the render equals the full
+    contraction wherever the tiles cover every tap and is NaN elsewhere.
 
     decoder(feats [N, 1, M, C], dirs [N, M, 3]) -> {'rgb', 'sigma'} is used
     by the unfused path.  fused_decoder = (w1t, b1, w2t, b2, sem_sigmoid)
@@ -477,7 +341,9 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     chunk = chunk or min(T, 8)
     if T % chunk:
         raise ValueError(f"depth steps {T} not a multiple of chunk {chunk}")
-    if window is None and tiles is None:
+    if tiles is not None:
+        window = (S + 2 * MARGIN, tiles[4])
+    elif window is None:
         window = default_window(S, opts["box_warp"], nrr, chunk, T)
     dev = planes.device
 
@@ -509,7 +375,7 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     def slabs(t_chunk, channels_first=False):
         with annotate("render.slabs"):
             return sample_slabs_prepared(prep, t_chunk, nrr, compute_dtype, win=window,
-                                         tiles=tiles, channels_first=channels_first)
+                                         channels_first=channels_first)
 
     if fused_decoder is not None:
         ch_n = T // chunk
@@ -552,9 +418,8 @@ def frustum_render(planes, decoder, cam2world, intrinsics, rendering_options,
     # Per-chunk rematerialization (JAX `frustum.py:635-672`): with
     # gradients, each chunk's decode+composite is recomputed in the backward
     # pass, so only the carry survives a chunk, not its slab features,
-    # decoder activations and colors (O(T * nrr^2 * 64) at nrr 128).  With
-    # `tiles` the recompute repeats the chunk's window-start syncs.  Without
-    # gradients (serving) nothing changes.  Off with
+    # decoder activations and colors (O(T * nrr^2 * 64) at nrr 128).
+    # Without gradients (serving) nothing changes.  Off with
     # rendering_kwargs['frustum_remat'] = False.
     rematerialize = opts.get("frustum_remat", True) and torch.is_grad_enabled()
 

@@ -18,14 +18,24 @@ renders compare with the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.grid_sample import grid_sample_2d_patch
 from . import math_utils
-from .frustum import _INV_PLANE_AXES
 from .ray_marcher import (compute_weights_3d, finalize_composite_3d,
                           march_rays_3d, midpoint_coefficients)
+
+
+def generate_plane_axes():
+    """Axis matrices of the 3 canonical planes (ref `renderer.py:23-37`)."""
+    return np.array([[[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+                     [[1, 0, 0], [0, 0, 1], [0, 1, 0]],
+                     [[0, 0, 1], [1, 0, 0], [0, 1, 0]]], dtype=np.float32)
+
+
+_INV_PLANE_AXES = np.linalg.inv(generate_plane_axes())  # [3, 3, 3]
 
 
 def _uniform(generator, shape, device):

@@ -61,6 +61,7 @@ from ..metrics.frechet_inception_distance import frechet_lowrank
 from ..metrics.metric_utils import get_feature_extractor
 from ..parallel.multihost import (all_reduce_max_, barrier, initialize_multihost,
                                   local_batch_slice, world_layout)
+from ..parallel.trainer import Trainer
 from ..utils.misc import format_time
 from ..utils.profiling import annotate
 from .augment import AugmentPipe, ada_update_p
@@ -70,7 +71,6 @@ from .loss import Pix2Pix3DLoss
 from .lpips import LPIPS
 from .stats import Collector
 from .tb import TBWriter
-from .trainer import Trainer
 from .viz import color_mask, save_image_grid
 from .wandb_sink import WandbSink
 

@@ -2,7 +2,7 @@
 `pix2pix3d_tpu/train/loss.py` (ref `training/loss.py:372-1022`).
 
 Each phase computes its scalar loss and stats from the modules' current
-parameters; the trainer (`train/trainer.py`) differentiates it with
+parameters; the trainer (`parallel/trainer.py`) differentiates it with
 `torch.autograd.grad` with respect to the phase's own network.  R1 is an
 inner `torch.autograd.grad(..., create_graph=True)` with respect to the real
 images, differentiated again by the trainer, so every op on the

@@ -1,8 +1,8 @@
 """The port's spans (`utils/profiling.py`): `annotate` costs no range
 outside a profiler and opens one inside it; `host_read` is the counted host
-sync; the frustum render's `render.prepare`, `render.slabs` and (on the
-tiled path only) `sync.window` spans nest and count as the benchmark's
-readers expect; the render's outputs do not change under the profiler; the
+sync; the frustum render's `render.prepare` and `render.slabs` spans nest
+and count as the benchmark's readers expect, and the render reads nothing
+back to the host; the render's outputs do not change under the profiler; the
 generator's stages keep their names.
 
 Port only, on the CPU, at tiny sizes: nothing here compares with JAX.
@@ -102,19 +102,14 @@ CASES = pytest.mark.parametrize("fused,tiles", [(False, None), (False, TILES),
 
 @CASES
 def test_render_spans_count_and_nest(fused, tiles):
-    """The window path reads nothing back; the tiled path has one
-    `sync.window` per image, plane and chunk, each inside a `render.slabs`
-    span (one a chunk); one `render.prepare`."""
+    """With a window or with tiles the render reads nothing back (no
+    `sync.*` span); one `render.slabs` span a chunk, one `render.prepare`."""
     with profile(activities=CPU) as prof:
         _render(fused, tiles)
     events = prof.events()
-    syncs = [e for e in events if e.name == "sync.window"]
-    assert len(syncs) == (N * 3 * (T // CHUNK) if tiles else 0)
-    assert all(_within(e, "render.slabs") for e in syncs)
     assert _names(prof).count("render.slabs") == T // CHUNK
     assert _names(prof).count("render.prepare") == 1
-    assert {e.name for e in events if e.name.startswith("sync.")} == (
-        {"sync.window"} if tiles else set())
+    assert {e.name for e in events if e.name.startswith("sync.")} == set()
 
 
 @CASES

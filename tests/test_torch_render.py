@@ -22,6 +22,7 @@ from pix2pix3d_tpu.render import ray_sampler as jrays
 
 from pix2pix3d_tpu_torch import bridge
 from pix2pix3d_tpu_torch.models.triplane import OSGDecoderSemanticLateSeparate
+from pix2pix3d_tpu_torch.ops import shear_textures as tst
 from pix2pix3d_tpu_torch.render import camera as tcam
 from pix2pix3d_tpu_torch.render import frustum as tfr
 from pix2pix3d_tpu_torch.render import ray_sampler as trays
@@ -35,6 +36,18 @@ OPTS = {"ray_start": 2.25, "ray_end": 3.3, "box_warp": 1.0,
 
 def t(x):
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _one_texture(t2, t_vals, d1, d2, F0, F1, nrr, win=None, tiles=None,
+                 channels_first=False):
+    """The port's `resample_slabs` on one texture in JAX's `slab_resample`
+    terms: t2 [ext, ext, C], t_vals [T].  `tiles` gives the window the
+    render contracts for them: full rows, the tiles' union x-window."""
+    if tiles is not None:
+        win = (t2.shape[0], tiles[4])
+    d1, d2 = (torch.as_tensor(d, dtype=torch.float32).reshape(1) for d in (d1, d2))
+    return tfr.resample_slabs(t2.transpose(1, 2)[None], t_vals[None], d1, d2, F0[None],
+                              F1[None], nrr, win=win, channels_first=channels_first)[0]
 
 
 def _camera(yaw, pitch, batch=1):
@@ -84,9 +97,12 @@ def test_coeffs_and_shear_factorization(yaw, pitch):
 
 @pytest.mark.parametrize("kernel", ["linear", "cubic"])
 def test_band_weights(kernel):
+    """The render's linear taps and the shear module's cubic taps against
+    JAX's `_band_weights`; its input offset is folded into the centers."""
     centers = np.random.RandomState(1).rand(3, 7).astype(np.float32) * 12 - 2
+    taps = tfr._band_weights if kernel == "linear" else tst._cubic_weights
     np.testing.assert_allclose(
-        tfr._band_weights(t(centers), 10, 0.5, kernel=kernel).numpy(),
+        taps(t(centers) - 0.5, 10).numpy(),
         np.asarray(jfr._band_weights(jnp.asarray(centers), 10, 0.5, kernel=kernel)),
         **GEOM)
 
@@ -94,10 +110,10 @@ def test_band_weights(kernel):
 def test_shear_pass_and_texture():
     tex = np.random.RandomState(2).randn(32, 32, 8).astype(np.float32)
     np.testing.assert_allclose(
-        tfr.shear_pass(t(tex), 0.3, 48, 8).numpy(),
+        tst.shear_pass(t(tex), 0.3, 48, 8).numpy(),
         np.asarray(jfr.shear_pass(jnp.asarray(tex), 0.3, 48, 8)), **TOL)
     np.testing.assert_allclose(
-        tfr.shear_texture(t(tex), torch.tensor(0.2), torch.tensor(-0.15)).numpy(),
+        tst.shear_texture(t(tex), torch.tensor(0.2), torch.tensor(-0.15)).numpy(),
         np.asarray(jfr.shear_texture(jnp.asarray(tex), 0.2, -0.15)), **TOL)
 
 
@@ -114,8 +130,8 @@ def test_slab_resample(win, channels_first):
     want = jfr.slab_resample(jnp.asarray(t2), jnp.asarray(t_vals), *args[:2],
                              jnp.asarray(args[2]), jnp.asarray(args[3]), 16,
                              win=win, channels_first=channels_first)
-    got = tfr.slab_resample(t(t2), t(t_vals), *args[:2], t(args[2]), t(args[3]),
-                            16, win=win, channels_first=channels_first)
+    got = _one_texture(t(t2), t(t_vals), *args[:2], t(args[2]), t(args[3]), 16,
+                       win=win, channels_first=channels_first)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -168,9 +184,9 @@ def _three_cameras_prepared(S, nrr, C, seed):
 def test_batched_slabs(win, channels_first, poisoned):
     """`sample_slabs_prepared` resamples every image and plane of a chunk in
     one batch: against JAX's per-image map and against a loop of
-    per-texture `slab_resample` calls, on three cameras whose window starts
-    differ across images and planes; a NaN-poisoned depth row gives NaN
-    where JAX's does."""
+    `resample_slabs` calls on one texture each, on three cameras whose
+    window starts differ across images and planes; a NaN-poisoned depth row
+    gives NaN where JAX's does."""
     nrr = 16
     (jprep, tprep), tex = _three_cameras_prepared(256, nrr, 4, seed=7)
     t_vals = np.tile(np.linspace(2.8, 3.1, 4, dtype=np.float32), (3, 1))
@@ -189,9 +205,9 @@ def test_batched_slabs(win, channels_first, poisoned):
     got = tfr.sample_slabs_prepared(tprep, t(t_vals), nrr, win=win,
                                     channels_first=channels_first)
     loop = torch.stack([
-        sum(tfr.slab_resample(t(tex[k]), t(t_vals[i]), tprep["d1"][k],
-                              tprep["d2"][k], tprep["F0"][k], tprep["F1"][k], nrr,
-                              win=win, channels_first=channels_first)
+        sum(_one_texture(t(tex[k]), t(t_vals[i]), tprep["d1"][k], tprep["d2"][k],
+                         tprep["F0"][k], tprep["F1"][k], nrr, win=win,
+                         channels_first=channels_first)
             for k in range(3 * i, 3 * i + 3)) / 3 for i in range(3)])
     assert got.shape == want.shape
     nan = np.isnan(want)
@@ -252,8 +268,9 @@ def test_frustum_render_unfused(yaw, pitch, window):
                                    (6, 64, 5, 48, 512)])   # ragged last tiles
 @pytest.mark.parametrize("channels_first", [False, True])
 def test_tiled_slab_resample(tiles, channels_first):
-    """Tiled contraction against JAX's and against the port's full
-    contraction (the windows cover every tap here)."""
+    """The port's contraction for `tiles` (full rows, the union x-window)
+    against JAX's tiled one and against the port's full contraction (the
+    windows cover every tap here)."""
     rng = np.random.RandomState(3)
     ext = 64 + 2 * jfr.MARGIN
     t2 = rng.randn(ext, ext, 4).astype(np.float32)
@@ -264,18 +281,17 @@ def test_tiled_slab_resample(tiles, channels_first):
                              jnp.asarray(args[2]), jnp.asarray(args[3]), 16,
                              tiles=tiles, channels_first=channels_first)
     targs = (t(t2), t(t_vals), *args[:2], t(args[2]), t(args[3]), 16)
-    got = tfr.slab_resample(*targs, tiles=tiles, channels_first=channels_first)
-    full = tfr.slab_resample(*targs, channels_first=channels_first)
+    got = _one_texture(*targs, tiles=tiles, channels_first=channels_first)
+    full = _one_texture(*targs, channels_first=channels_first)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("kw,copied", [(dict(tiles=(4, 96, 4, 96, 256)), [9]),
+@pytest.mark.parametrize("kw,copied", [(dict(tiles=(4, 96, 4, 96, 256)), []),
                                        (dict(win=(200, 96)), [])])
 def test_slab_resample_reads_its_window_starts_once(monkeypatch, kw, copied):
-    """The tiled path reads every window's start of a call with one host
-    copy (4 + 4 tiles and the union window); the window path finds its
-    starts on the device and reads nothing back; no other sync."""
+    """The resample finds its window starts on the device and reads nothing
+    back, for the tiles' window as for any other; no other sync."""
     calls = []
     real = torch.Tensor.tolist
 
@@ -287,8 +303,8 @@ def test_slab_resample_reads_its_window_starts_once(monkeypatch, kw, copied):
     rng = np.random.RandomState(3)
     ext = 64 + 2 * jfr.MARGIN
     monkeypatch.setattr(torch.Tensor, "item", lambda self: calls.append("item"))
-    tfr.slab_resample(t(rng.randn(ext, ext, 4)), t(np.linspace(2.0, 2.4, 5)), 0.9,
-                      1.1, t([40.0, 30.0]), t([5.0, -4.0]), 16, **kw)
+    _one_texture(t(rng.randn(ext, ext, 4)), t(np.linspace(2.0, 2.4, 5)), 0.9, 1.1,
+                 t([40.0, 30.0]), t([5.0, -4.0]), 16, **kw)
     assert calls == copied
 
 
@@ -357,9 +373,8 @@ def test_tiled_frustum_render_unfused(tiles, poisoned):
 
 
 def test_tiled_frustum_render_rematerialized_gradients():
-    """Training's per-chunk rematerialization (`frustum_remat`) over the
-    tiled path: the same outputs and the same plane gradients as without
-    it (the recompute reads its window starts again)."""
+    """Training's per-chunk rematerialization (`frustum_remat`) with tiles:
+    the same outputs and the same plane gradients as without it."""
     _, _, td = _decoder(False, 6)
     c2w, intr = _camera(np.pi / 2 + 0.2, np.pi / 2 - 0.1, batch=1)
     planes = t(_planes(1, seed=2))
@@ -377,9 +392,9 @@ def test_tiled_frustum_render_rematerialized_gradients():
 
 @pytest.mark.parametrize("remat", [True, False])
 def test_tiled_frustum_render_gradients_match_jax(remat):
-    """Plane gradients through the tiled path, with and without training's
-    `frustum_remat`, against `jax.grad` of JAX's tiled render: the backward
-    of stage 1's per-i-tile and stage 2's per-j-tile slices included."""
+    """Plane gradients with tiles, with and without training's
+    `frustum_remat`, against `jax.grad` of JAX's tiled render (its
+    per-i-tile and per-j-tile slices included)."""
     jd, params, td = _decoder(False, 6)
     c2w, intr = _camera(np.pi / 2 + 0.2, np.pi / 2 - 0.1, batch=1)
     planes = _planes(1, seed=2)

@@ -34,7 +34,7 @@ from pix2pix3d_tpu_torch.train import __main__ as tcli
 from pix2pix3d_tpu_torch.train.augment import AugmentPipe as TPipe, ada_update_p
 from pix2pix3d_tpu_torch.train.loop import training_loop
 from pix2pix3d_tpu_torch.train.loss import Pix2Pix3DLoss
-from pix2pix3d_tpu_torch.train.trainer import Trainer
+from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
 from test_torch_train_data import folder  # noqa: F401  (fixture)
 from test_torch_train_sinks import read_records

@@ -42,7 +42,7 @@ from pix2pix3d_tpu.train.loss import Pix2Pix3DLoss as JLoss
 
 from pix2pix3d_tpu_torch.train import __main__ as tcli
 from pix2pix3d_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from pix2pix3d_tpu_torch.train.trainer import Trainer
+from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
 from test_torch_train_phases import Nets, two_torch_threads
 from test_torch_train_data import folder  # noqa: F401  (fixture)

@@ -32,7 +32,7 @@ from pix2pix3d_tpu_torch.ops.upfirdn2d import setup_filter
 from pix2pix3d_tpu_torch.train import ema as tema
 from pix2pix3d_tpu_torch.train.lpips import LPIPS
 from pix2pix3d_tpu_torch.train.stats import Collector, moments
-from pix2pix3d_tpu_torch.train.trainer import _lazy_adam as t_lazy_adam
+from pix2pix3d_tpu_torch.parallel.trainer import _lazy_adam as t_lazy_adam
 
 from test_torch_train_phases import two_torch_threads  # noqa: F401  (autouse)
 

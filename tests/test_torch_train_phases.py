@@ -58,7 +58,7 @@ from pix2pix3d_tpu_torch.render import renderer as trenderer
 from pix2pix3d_tpu_torch.train import augment as taug
 from pix2pix3d_tpu_torch.train import loss as tloss
 from pix2pix3d_tpu_torch.train.lpips import LPIPS as TLPIPS
-from pix2pix3d_tpu_torch.train.trainer import _set_trainable
+from pix2pix3d_tpu_torch.parallel.trainer import _set_trainable
 
 RES, NRR, B = 128, 16, 2
 BLUR = (10.0, 32)           # sigma 10 (the recipe's blur_init), half width 32

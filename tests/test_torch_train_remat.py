@@ -33,7 +33,7 @@ from pix2pix3d_tpu_torch.nn import discriminator as tdisc
 from pix2pix3d_tpu_torch.nn import synthesis as tsyn
 from pix2pix3d_tpu_torch.render import renderer as trenderer
 from pix2pix3d_tpu_torch.train import loss as tloss
-from pix2pix3d_tpu_torch.train.trainer import Trainer
+from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
 from test_torch_train_phases import (assert_grads_close, assert_loss_close,
                                      BLUR, coin_key, jax_phase_fns, _jb,

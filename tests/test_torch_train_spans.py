@@ -24,7 +24,7 @@ from pix2pix3d_tpu_torch.render.camera import (LookAtPoseSampler, fov_to_intrins
                                                pose_to_conditioning)
 from pix2pix3d_tpu_torch.train import loop as tloop
 from pix2pix3d_tpu_torch.train.dataset import DataLoader, build_dataset
-from pix2pix3d_tpu_torch.train.trainer import Trainer
+from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 from pix2pix3d_tpu_torch.utils import profiling
 from pix2pix3d_tpu_torch.utils.png import write_png
 

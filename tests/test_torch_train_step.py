@@ -42,7 +42,7 @@ from pix2pix3d_tpu.train.ema import copy_buffers, ema_update
 import optax
 
 from pix2pix3d_tpu_torch import bridge
-from pix2pix3d_tpu_torch.train.trainer import Trainer
+from pix2pix3d_tpu_torch.parallel.trainer import Trainer
 
 from test_torch_train_phases import (jax_phase_fns, make_batch, Nets,
                                      shared_draws, to_torch, two_torch_threads)

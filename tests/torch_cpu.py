@@ -10,7 +10,7 @@ process gets 2 threads, as `two_torch_threads` gave the trainer's tests.
 Heap: the port's CPU forwards make many large temporaries.  One frustum
 render of tests/test_torch_noise.py allocates ~20 GB in elementwise
 temporaries, most of them in the band-weight construction
-(`render/frustum.py` `_band_weights`: [lines, out, in] taps, 16-80 MB
+(`ops/shear_textures.py` `_cubic_weights`: [lines, out, in] taps, 16-80 MB
 each).  With glibc's defaults such a block is a fresh `mmap`, or heap growth
 that the next `free` trims back, and the kernel zeroes its pages again on
 first touch: that test spent 69 s of system time beside 103 s of user
