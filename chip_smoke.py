@@ -8,8 +8,8 @@ Phases, each printing its name and wall time:
 1. device   -- CUDA card present; its name and `nvidia-smi` name/power limit.
 2. build    -- nvcc builds the port's kernels for sm_90a from `csrc/`, one
                nvcc process each, started together: `decode_composite.cu`,
-               `late_separate_decode.cu` and `shear_textures.cu`
-               (`cuda_build.KERNELS`); ptxas's registers and spills for
+               `late_separate_decode.cu`, `shear_textures.cu` and
+               `upfirdn2d.cu` (`cuda_build.KERNELS`); ptxas's registers and spills for
                each kernel function (each dtype instantiation).
 3. kernel   -- the decode+composite kernel against its plain PyTorch
                version at the main-path shape (N=1, T=64 in chunks of 8,
@@ -299,10 +299,24 @@ time and the generator's parameter count; their paths join
                importance path and on a render with gradients (0 each, the
                latter's textures carrying a grad_fn); and one serving
                request with the render under set_sync_debug_mode("error").
+36. upfirdn2d -- the FIR resample kernel (`ops/upfirdn2d.py`, one launch a
+               call, forward and backward) on every signature (shape,
+               dtype, up, down, padding, flip, gain, filter) that a seg2cat
+               serving forward at batch 32 and 1, an edge2car apps forward
+               at batch 32 and one recipe training step with its snapshot
+               give it, every launch under set_sync_debug_mode("error"):
+               against the plain composition in f32 (TF32 off) at FIR_TOL,
+               and on the step's signatures the input gradient and the
+               gradient of a gradient (R1's double backward) against plain
+               autograd; launches equal to the forward's calls, by stage;
+               the summed device time and bytes bound of a seg2cat batch's
+               calls; SR block 1's conv0 (FIR_SR1) in bf16 and f32 beside
+               the bytes bound, the plain composition and
+               `F.conv2d(groups=c)` on the prepared input.
 Phases 30-32 launch neither kernel; their paths join `launches_by_path`.
-The shear kernel's launches are counted by phase 35 alone (its paths are in
-its `kernels` entry); the other phases' expectations name the first two
-kernels.
+The shear kernel's launches are counted by phase 35 alone, the upfirdn2d
+kernel's by phase 36 (their paths are in their `kernels` entries); the
+other phases' expectations name the first two kernels.
 
 Times: in the `kernels` line, `ms`, `plain_ms` and `library_ms` time one
 call between CUDA events (`cuda_ms`), the host's launch path included;
@@ -3606,6 +3620,253 @@ def phase_shear(device, card):
             "launches_by_path": counts.by_path["shear_textures"]}
 
 
+# phase upfirdn2d: the kernel against the plain composition in f32 (TF32
+# off).  bf16: the kernel rounds its f32 sum once, at most half a bf16 step
+# (2^-9 of the value), and the inputs are bf16 values, so the plain f32 sum
+# is the exact sum up to f32 rounding: allclose at 2^-8.  f32: the same 16
+# or fewer products of O(1) values summed in another order, ~1e-7: 1e-5.
+FIR_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+# SR block 1's conv0 FIR of a seg2cat batch of 32 (superresolution.py's
+# first block, 256 channels at 256^2, up=2 with the 3x3 conv's halo)
+FIR_SR1 = dict(shape=(32, 256, 256, 256), up=2, down=1, padding=(3, 2, 3, 2), gain=4.0)
+
+
+class FirCalls:
+    """Records every launch of the upfirdn2d kernel (its signature: input
+    shape, dtype, up, down, padding, flip, gain and the filter) while
+    installed, each launch under `set_sync_debug_mode("error")`, and counts
+    the op's calls (`upfirdn2d(...)`, the backward's included)."""
+
+    def __init__(self):
+        from pix2pix3d_tpu_torch.ops import upfirdn2d as fir
+        self.fir = fir
+        self.seen = {}        # signature -> [count, filter]
+        self.calls = 0
+        self.by_stage = {}
+
+    def __enter__(self):
+        op, cls = self.fir.upfirdn2d, type(self.fir.upfirdn2d)
+        real_launch, real_call = op.launch, cls.__call__
+
+        def launch(x, f, up, down, padding, flip_filter, gain):
+            key = (tuple(x.shape), x.dtype, up, down, tuple(padding), flip_filter, gain,
+                   None if f is None else tuple(f.shape))
+            rec = self.seen.setdefault(key, [0, f])
+            rec[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real_launch(x, f, up, down, padding, flip_filter, gain)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        def call(this, *a, **kw):
+            self.calls += 1
+            return real_call(this, *a, **kw)
+
+        op.launch = launch
+        cls.__call__ = call
+        self._restore = lambda: (delattr(op, "launch"), setattr(cls, "__call__", real_call))
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def stages(self, triplane):
+        """Attribute launches to the generator's stages: patches the
+        `annotate` the generator wraps its stages in (a context manager)."""
+        real = triplane.annotate
+        op = self.fir.upfirdn2d
+
+        @contextlib.contextmanager
+        def counting(name):
+            before = op.launches
+            with real(name):
+                yield
+            self.by_stage[name] = self.by_stage.get(name, 0) + op.launches - before
+
+        triplane.annotate = counting
+        stack = contextlib.ExitStack()
+        stack.callback(setattr, triplane, "annotate", real)
+        return stack
+
+
+def fir_bytes(shape, dtype, out_shape):
+    size = torch.empty((), dtype=dtype).element_size()
+    return (math.prod(shape) + math.prod(out_shape)) * size
+
+
+def fir_library_input(fir, x, up, padding):
+    """The zero-inserted, padded input `F.conv2d(groups=c)` takes (the
+    plain composition's steps 1-2), built outside any timing."""
+    n, c, h, w = x.shape
+    if up > 1:
+        x = torch.nn.functional.pad(x.reshape(n, c, h, 1, w, 1),
+                                    [0, up - 1, 0, 0, 0, up - 1]).reshape(n, c, h * up, w * up)
+    return torch.nn.functional.pad(x, list(padding))
+
+
+def check_fir(fir, key, f, gen, grads):
+    """The kernel against the plain composition (f32, TF32 off) at one
+    signature on seeded inputs; with `grads`, the input gradient and the
+    gradient of a gradient (the double backward R1 takes) against plain
+    autograd too.  Returns (worst share of the allclose bound, device ms,
+    bytes bound ms)."""
+    from pix2pix3d_tpu_torch.ops import precision
+    shape, dtype, up, down, padding, flip, gain, _ = key
+    tol = FIR_TOL[dtype]
+    kw = dict(up=up, down=down, padding=list(padding), flip_filter=flip, gain=gain)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    with torch.no_grad(), precision.policy(False):
+        got = fir.upfirdn2d(x, f, **kw)
+        want = fir.upfirdn2d_plain(x.float(), f, **kw)
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError(f"fir {key}: {got.dtype} {tuple(got.shape)}, plain "
+                                 f"{tuple(want.shape)}")
+        used = compare((got,), (want,), tol)[2]
+        out_shape = tuple(got.shape)
+        del got, want
+        k_ms = device_ms(lambda: fir.upfirdn2d(x, f, **kw), 3)
+    if grads:
+        w = torch.randn(out_shape, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        sides = []
+        for op, dt in ((fir.upfirdn2d, dtype), (fir.upfirdn2d_plain, torch.float32)):
+            xi = x.to(dt).requires_grad_(True)
+            wi = w.to(dt).requires_grad_(True)
+            with precision.policy(False):
+                y = op(xi, f, **kw)
+                gx, = torch.autograd.grad((y.float() * wi.float()).sum(), xi,
+                                          create_graph=True)
+                gw, = torch.autograd.grad((gx.float() * v.float()).sum(), wi)
+            if gx.dtype != dt or gw.dtype != dt:
+                raise AssertionError(f"fir {key}: gradients in {gx.dtype}, {gw.dtype}")
+            sides.append((gx.detach(), gw))
+            del xi, wi, y
+        used = max(used, compare(sides[0], sides[1], tol)[2])
+        del w, v, sides
+    del x
+    return used, k_ms, fir_bytes(shape, dtype, out_shape) / PEAK_BYTES_S * 1e3
+
+
+def phase_upfirdn2d(device, card, folder, tmp):
+    """Phase 36: the upfirdn2d kernel on every signature that a seg2cat
+    batch-32 forward, an edge2car batch-32 forward and one recipe training
+    step give it (each launch under the sync check), against the plain
+    composition, gradients and double backward included where the step
+    differentiated; launches per forward against its calls and by stage;
+    its time at SR block 1's conv0 beside the bound, the plain composition
+    and `F.conv2d(groups=c)`.  Returns its `kernels` entry."""
+    from pix2pix3d_tpu_torch import config
+    from pix2pix3d_tpu_torch.apps.common import build_app_generator
+    from pix2pix3d_tpu_torch.models import build_generator, triplane
+    from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.ops import upfirdn2d as fir
+    t0 = time.time()
+    op = fir.upfirdn2d
+    paths = {}
+
+    def forward(name, G, nrr, tf32, n=32):
+        reqs = [request_inputs(G, s, device) for s in range(n)]
+        z = torch.cat([r[0] for r in reqs])
+        pose = torch.cat([r[1] for r in reqs])
+        batch = {"mask": torch.cat([r[2]["mask"] for r in reqs]), "pose": pose}
+
+        def run():
+            with torch.no_grad(), precision.policy(tf32):
+                return G(z, pose, batch, neural_rendering_resolution=nrr,
+                         noise_mode="const", det=True)
+
+        run()                                    # warm-up
+        rec = FirCalls()
+        with rec, rec.stages(triplane):
+            op.launches = 0
+            run()
+            torch.cuda.synchronize()
+        if op.launches != rec.calls or not rec.calls:
+            raise AssertionError(f"fir {name}: {op.launches} launches for {rec.calls} calls")
+        paths[name] = rec
+        log(f"fir {name} forward: {rec.calls} calls, {op.launches} launches "
+            f"(by stage {rec.by_stage}), {len(rec.seen)} signatures, every launch "
+            f"under set_sync_debug_mode('error')")
+
+    G = build_generator(device=device, seed=0, **config.serving_generator_config("seg2cat"))
+    forward("seg2cat-b32", G, config.SERVING_NEURAL_RENDERING_RESOLUTION, True)
+    forward("seg2cat-b1", G, config.SERVING_NEURAL_RENDERING_RESOLUTION, True, n=1)
+    del G
+    G, app = build_app_generator("edge2car", device=device, seed=0)
+    forward("edge2car-b32", G, app["neural_rendering_resolution"], False)
+    del G
+    torch.cuda.empty_cache()
+
+    rec = FirCalls()
+    with rec:
+        run_recipe("fir-train", [], folder, tmp, device, card, PathCounts({}), steps=1)
+    paths["train"] = rec
+    log(f"fir train step 0 (every phase) and its snapshot: {rec.calls} calls, "
+        f"{sum(r[0] for r in rec.seen.values())} launches, {len(rec.seen)} signatures")
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(36)
+    worst, batch_ms, batch_bound = 0.0, 0.0, 0.0
+    done = set()
+    for name, rec in paths.items():
+        for key, (count, f) in rec.seen.items():
+            grads = name == "train"
+            if (key, grads) in done:
+                continue
+            done.add((key, grads))
+            used, k_ms, b_ms = check_fir(fir, key, f, gen, grads)
+            worst = max(worst, used)
+            if name == "seg2cat-b32":
+                batch_ms += count * k_ms
+                batch_bound += count * b_ms
+            log(f"fir {name} {count}x {key[0]} {str(key[1])[6:]} up {key[2]} down "
+                f"{key[3]} pad {key[4]} flip {key[5]} gain {key[6]} filter {key[7]}: "
+                f"{used:.3f} of the allclose bound{' (with gradients)' if grads else ''}; "
+                f"device {k_ms:.4f} ms, bytes bound {b_ms:.4f} ms")
+        torch.cuda.empty_cache()
+    log(f"fir: every signature within its tolerance (worst {worst:.3f} of the bound); a "
+        f"seg2cat batch-32 forward's calls: kernel device {batch_ms:.3f} ms, bytes bound "
+        f"{batch_bound:.3f} ms ({100 * batch_bound / batch_ms:.1f}%) [{card}]")
+
+    rows = {}
+    sr = FIR_SR1
+    f = fir.setup_filter([1, 3, 3, 1], device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(sr["shape"], generator=gen, device=device).to(dtype)
+        kw = dict(up=sr["up"], down=sr["down"], padding=list(sr["padding"]), gain=sr["gain"])
+        y = op(x, f, **kw)
+        b_ms = fir_bytes(x.shape, dtype, y.shape) / PEAK_BYTES_S * 1e3
+        del y
+        with precision.policy(False):
+            k_ms = device_ms(lambda: op(x, f, **kw), 5)
+            kc_ms = cuda_ms(lambda: op(x, f, **kw), 5)
+            p_ms = device_ms(lambda: fir.upfirdn2d_plain(x, f, **kw), 2)
+            pc_ms = cuda_ms(lambda: fir.upfirdn2d_plain(x, f, **kw), 2)
+            xl = fir_library_input(fir, x, sr["up"], sr["padding"])
+            c = x.shape[1]
+            wl = (f.flip([0, 1]) * sr["gain"]).to(dtype)[None, None].repeat(c, 1, 1, 1)
+            l_ms = device_ms(lambda: torch.nn.functional.conv2d(xl, wl, groups=c), 3)
+            lc_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xl, wl, groups=c), 3)
+        del x, xl
+        torch.cuda.empty_cache()
+        rows[dtype] = dict(device_ms=k_ms, ms=kc_ms, plain_device_ms=p_ms, plain_ms=pc_ms,
+                           library_device_ms=l_ms, library_ms=lc_ms, bound_ms=b_ms)
+        log(f"fir SR block 1 conv0 {sr['shape']} {str(dtype)[6:]}: kernel device {k_ms:.4f} "
+            f"ms (call {kc_ms:.4f}), bytes bound {b_ms:.4f} ms ({100 * b_ms / k_ms:.1f}%), "
+            f"plain device {p_ms:.4f} (call {pc_ms:.4f}), F.conv2d(groups=c) on the "
+            f"prepared input device {l_ms:.4f} (call {lc_ms:.4f}) [{card}]")
+    phase_done("upfirdn2d", t0)
+    main_row = rows[torch.bfloat16]
+    return dict({"name": "upfirdn2d", "route": "cuda",
+                 "source": "pix2pix3d_tpu_torch/csrc/upfirdn2d.cu",
+                 "replaces": "none: pix2pix3d_tpu/ops/upfirdn2d.py is plain XLA",
+                 "launches": paths["seg2cat-b1"].calls, "max_share_of_tol": worst,
+                 "bound_by": "bytes", "f32": rows[torch.float32],
+                 "launches_by_path": {n: sum(c for c, _ in r.seen.values())
+                                      for n, r in paths.items()}}, **main_row)
+
+
 def main():
     # ---- 1. device
     t0 = time.time()
@@ -4038,6 +4299,8 @@ def main():
         phase_render_syncs(device, card)
         # ---- 35. the texture-shear kernel
         shear_entry = phase_shear(device, card)
+        # ---- 36. the upfirdn2d kernel
+        fir_entry = phase_upfirdn2d(device, card, folder, tmp)
 
     for entry in report:
         entry["launches_by_path"] = counts.by_path[entry["name"]]
@@ -4051,6 +4314,7 @@ def main():
         "library_device_ms": dlib_ms,
         "launches_by_path": counts.by_path["late_separate_decode"]})
     report.append(shear_entry)
+    report.append(fir_entry)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel of the port: the first `load` builds them all at once
-KERNELS = ("decode_composite", "late_separate_decode", "shear_textures")
+KERNELS = ("decode_composite", "late_separate_decode", "shear_textures", "upfirdn2d")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
