@@ -251,10 +251,14 @@ time and the generator's parameter count; their paths join
                widths of NVlabs/stylegan3 (StyleGAN3-T: channel_base 32768,
                channel_max 512, 2 mapping layers, 4 fp16 resolutions,
                conv_clamp 256; StyleGAN3-R: 1x1 convs, channel base and max
-               doubled, radial filters), seeded random weights, batch 4, bf16
-               layers and TF32 as served: shapes, finiteness, median ms of 3
-               forwards, peak memory; a small T and R (32^2, f32, TF32 off)
-               on the card against the same weights on the CPU, S3_CPU_TOL.
+               doubled, radial filters), built by
+               `build_generator("GeneratorS3")`, seeded random weights, batch
+               4, bf16 layers and TF32 as served: shapes, finiteness, median
+               ms of 3 forwards, peak memory, 15 `filtered_lrelu.calls` and
+               30 `upfirdn2d.launches` a forward; T at batch 32 under
+               set_sync_debug_mode("error"); a small T and R (32^2, f32, TF32
+               off) on the card against the same weights on the CPU,
+               S3_CPU_TOL.
 31. equivariance -- `metric_main.calc_metric("eq100")` on phase 30's
                StyleGAN3-T: 100 latents at batch 4, four renders each, the
                image operators on the card; the three PSNRs (finite) and the
@@ -2960,6 +2964,12 @@ S3_CONFIGS = {
                         use_radial_filters=True),
 }
 S3_BATCH = 4
+# the benchmark's batch (cell stylegan3-t-batch32), run once under
+# set_sync_debug_mode("error"); a forward's filtered_lrelu calls (14 layers
+# and ToRGB) and upfirdn2d launches (two a call: ToRGB's 1x1 passes launch too)
+S3_SERVE_BATCH = 32
+S3_CALLS = 15
+S3_FIR_LAUNCHES = 30
 # card against the port on the CPU at a small width, f32 with TF32 off: the
 # same code on both devices reads below 5e-7 (max abs, T and R, on an H100),
 # while TF32 rounds a product's inputs to 10 mantissa bits (about 5e-4
@@ -2989,25 +2999,35 @@ def s3_kwargs(name, **over):
 
 def phase_stylegan3(device, card, counts):
     """Phase 30: GeneratorS3 at the published AFHQv2 512^2 widths
-    (StyleGAN3-T and -R, seeded random weights), batch 4, bf16 layers and
-    TF32 as served: shapes, finiteness, median ms of 3 forwards after a
-    warm-up, peak memory; then a small T and R on the card against the same
-    weights on the CPU (f32, TF32 off).  Returns the T generator."""
-    from pix2pix3d_tpu_torch.models.triplane import init_parameters
-    from pix2pix3d_tpu_torch.nn.stylegan3 import GeneratorS3
+    (StyleGAN3-T and -R, seeded random weights) through `build_generator`,
+    batch 4, bf16 layers and TF32 as served: shapes, finiteness, median ms
+    of 3 forwards after a warm-up, peak memory, and each forward's
+    filtered_lrelu calls and upfirdn2d launches; StyleGAN3-T once more at
+    batch 32 under set_sync_debug_mode("error"); then a small T and R on the
+    card against the same weights on the CPU (f32, TF32 off).  Returns the T
+    generator."""
+    from pix2pix3d_tpu_torch.models.triplane import build_generator
     from pix2pix3d_tpu_torch.ops import precision
+    from pix2pix3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu
+    from pix2pix3d_tpu_torch.ops.upfirdn2d import upfirdn2d
     t0 = time.time()
     gen = torch.Generator().manual_seed(0)
     z = torch.randn((S3_BATCH, 512), generator=gen).to(device)
+    z32 = torch.randn((S3_SERVE_BATCH, 512), generator=gen).to(device)
     out = None
     for name in S3_CONFIGS:
-        G = GeneratorS3(**s3_kwargs(name))
-        init_parameters(G, torch.Generator().manual_seed(0))
-        G = G.to(device).eval().requires_grad_(False)
+        G = build_generator("GeneratorS3", device=device, seed=0, **s3_kwargs(name))
 
-        def forward():
+        def forward(latents=z):
+            calls, launches = filtered_lrelu.calls, upfirdn2d.launches
             with torch.no_grad(), precision.policy(True):
-                return G(z, None, noise_mode="const")
+                img = G(latents, None, noise_mode="const")
+            got = (filtered_lrelu.calls - calls, upfirdn2d.launches - launches)
+            if got != (S3_CALLS, S3_FIR_LAUNCHES):
+                raise AssertionError(f"stylegan3 {name}: a forward made {got[0]} "
+                                     f"filtered_lrelu calls and {got[1]} upfirdn2d "
+                                     f"launches, not {S3_CALLS} and {S3_FIR_LAUNCHES}")
+            return img
 
         forward()
         torch.cuda.synchronize()
@@ -3021,9 +3041,22 @@ def phase_stylegan3(device, card, counts):
             f"{sum(getattr(G.synthesis, n).use_fp16 for n in layers)} in bf16; batch "
             f"{S3_BATCH}: image {tuple(img.shape)} finite, std {img.float().std():.4f}; "
             f"ms {[round(t, 3) for t in times]} median {statistics.median(times):.3f}; "
-            f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+            f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; a forward "
+            f"{S3_CALLS} filtered_lrelu calls, {S3_FIR_LAUNCHES} upfirdn2d launches [{card}]")
         if name == "stylegan3-t":
             out = G
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = forward(z32)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check_shapes({"image": img}, {"image": (S3_SERVE_BATCH, 3, res, res)})
+            log(f"stylegan3 {name} batch {S3_SERVE_BATCH} under "
+                f"set_sync_debug_mode('error'): image {tuple(img.shape)} finite, no host "
+                f"sync; peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+            del img
         else:
             del G
         torch.cuda.empty_cache()
@@ -3035,11 +3068,8 @@ def phase_stylegan3(device, card, counts):
         kw = s3_kwargs(name, **small)
         if name == "stylegan3-r":
             kw.update(channel_base=2048, channel_max=64)
-        cpu = GeneratorS3(**kw)
-        init_parameters(cpu, torch.Generator().manual_seed(1))
-        card_g = GeneratorS3(**kw)
-        card_g.load_state_dict(cpu.state_dict())
-        card_g = card_g.to(device)
+        cpu = build_generator("GeneratorS3", device="cpu", seed=1, **kw)
+        card_g = build_generator("GeneratorS3", device=device, seed=1, **kw)
         with torch.no_grad(), precision.policy(False):
             want = cpu(zs, None)
             got = card_g(zs.to(device), None).cpu()

@@ -671,9 +671,19 @@ def build_generator(class_name, device="cuda", seed=0, train=False, **kwargs):
     weights drawn from `torch.Generator().manual_seed(seed)`, on `device`
     (default: the card; raises if there is none): in eval mode with frozen
     parameters for serving and the apps, or with `train=True` in train mode
-    with parameters that take gradients (the trainer's G)."""
+    with parameters that take gradients (the trainer's G).
+
+    Besides the registry's tri-plane generators, `GeneratorS3` builds
+    StyleGAN3 (`nn/stylegan3.py`).  It is not in the registry, which holds
+    the JAX package's keys, and is imported only when asked for: its filter
+    design imports scipy, which no other module of the port loads."""
     device = resolve_device(device)
-    G = GENERATOR_REGISTRY[class_name.split(".")[-1]](**kwargs)
+    name = class_name.split(".")[-1]
+    if name == "GeneratorS3":
+        from ..nn.stylegan3 import GeneratorS3 as cls
+    else:
+        cls = GENERATOR_REGISTRY[name]
+    G = cls(**kwargs)
     init_parameters(G, torch.Generator().manual_seed(seed))
     if train:
         return G.to(device).train().requires_grad_(True)

@@ -8,6 +8,11 @@ built, as in the JAX package.  Layers whose sampling rate is among the
 `num_fp16_res` highest run in bfloat16 tensors, as in the JAX package;
 `force_fp32=True` runs everything in f32.
 
+Spans (`utils/profiling.annotate`, a range only under a profiler): `mapping`
+and `synthesis` in `GeneratorS3.forward`, `synthesis_input` around the
+Fourier-feature input, `modconv` around each layer's modulated convolution;
+each layer's `filtered_lrelu` call opens its own span.
+
 Parameter names follow the JAX tree: the synthesis network's layers are its
 submodules `L{idx}_{size}_{ch}`, and `SynthesisInput` holds `weight`,
 `affine`, and the buffers `transform`, `freqs` and `phases`.  The JAX tree
@@ -28,6 +33,7 @@ from torch import nn
 
 from ..ops.conv2d_resample import _conv2d
 from ..ops.filtered_lrelu import filtered_lrelu
+from ..utils.profiling import annotate
 from .layers import FullyConnected, randn
 from .mapping import MappingNetwork
 
@@ -221,10 +227,11 @@ class SynthesisLayerS3(nn.Module):
             styles = styles / math.sqrt(self.in_channels * self.conv_kernel ** 2)
         dtype = (torch.bfloat16 if (self.use_fp16 and not force_fp32)
                  else torch.float32)
-        x = modulated_conv2d_s3(
-            x.to(dtype), self.weight, styles, demodulate=not self.is_torgb,
-            padding=self.conv_kernel - 1,
-            input_gain=input_gain.expand(x.shape[0]))
+        with annotate("modconv"):
+            x = modulated_conv2d_s3(
+                x.to(dtype), self.weight, styles, demodulate=not self.is_torgb,
+                padding=self.conv_kernel - 1,
+                input_gain=input_gain.expand(x.shape[0]))
         return filtered_lrelu(
             x, fu=self.up_filter, fd=self.down_filter, b=self.bias.to(x.dtype),
             up=self.up_factor, down=self.down_factor, padding=self.padding,
@@ -293,7 +300,8 @@ class SynthesisNetworkS3(nn.Module):
         if ws.shape[1] != self.num_ws:
             raise ValueError(f"ws {tuple(ws.shape)} has not {self.num_ws} ws")
         ws = ws.float()
-        x = self.input(ws[:, 0])
+        with annotate("synthesis_input"):
+            x = self.input(ws[:, 0])
         for i, name in enumerate(self.layer_names):
             x = getattr(self, name)(x, ws[:, i + 1], force_fp32=force_fp32)
         if self.output_scale != 1:
@@ -323,6 +331,8 @@ class GeneratorS3(nn.Module):
 
     def forward(self, z, c, truncation_psi=1.0, truncation_cutoff=None,
                 **synthesis_kwargs):
-        ws = self.mapping(z, c, truncation_psi=truncation_psi,
-                          truncation_cutoff=truncation_cutoff)
-        return self.synthesis(ws, **synthesis_kwargs)
+        with annotate("mapping"):
+            ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                              truncation_cutoff=truncation_cutoff)
+        with annotate("synthesis"):
+            return self.synthesis(ws, **synthesis_kwargs)
